@@ -1,0 +1,601 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA H100: build, check, drive.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; no phase's failure is caught):
+
+1. Environment: torch / CUDA versions, the card's name and power limit, and
+   the build of every ``whisper_finetune_torch/csrc/*.cu`` (all ``nvcc`` runs
+   started together) with its seconds.
+2. Kernels against their plain PyTorch twins on the card, bf16 in, float32
+   math in the twin, at the main path's shapes: attention forward and both
+   backward kernels at (2, 20, 1500x1500) and (2, 20, 448x1500) plus ragged
+   and causal shapes; the fused 8-bit AdamW on (NB, 256) leaves with NB
+   divisible and not divisible by 128, three steps. Then each kernel's time
+   at the main path's shapes (CUDA events, median of repeats), its plain
+   twin's time, the PyTorch library call's time where one exists, and the
+   bound (the larger of bytes over 3.35 TB/s and operations over
+   989 TFLOP/s bf16, from the shapes); the two backward kernels also
+   together, against the bound of splash's fused backward.
+3. The main path: full large-v3 (1.55 B parameters, random weights from a
+   seed), batch 8 of synthetic 30 s audio, on-device log-mel + SpecAugment,
+   full remat, bf16 compute, bf16 gradient accumulator, label smoothing
+   0.1, clip 1.0, fused 8-bit AdamW(2e-5, wd 0.01), through
+   ``make_train_step``: 2 warm-up and 5 timed steps. Every launch counter is
+   set to 0 just before and read just after; each kernel must have launched
+   exactly its expected count. Then the fused AdamW against its twin on
+   copies of the model's own ``tok_emb`` and a (32, 1280, 5120) leaf with
+   their 8-bit state, and its time over all quantized leaves.
+
+``--profile`` adds a ``torch.profiler`` window of two main-path steps: device
+time by kernel and group, and the device's busy share of the wall time.
+
+Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
+``nvidia-smi`` name/power-limit line, and as the last line
+``{"ok": true, "device": {...}}``. The full record also goes to
+``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+BF16_FLOP_PER_S = 989e12      # dense bf16 tensor cores, same source
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+A_NAMES = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv")  # the attention kernels
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, iters: int = 10, repeats: int = 3) -> float:
+    """Median over ``repeats`` of the mean time of ``iters`` calls, by CUDA
+    events, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, flops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _flops_per_sample(dims) -> float:
+    """Matmul FLOPs of one 30 s sample, forward (2*M*N*K a matmul): the
+    port's copy of bench.py's accounting."""
+    d_a, d_t = dims.n_audio_state, dims.n_text_state
+    T_a, T_t = dims.n_audio_ctx, dims.n_text_ctx
+    enc_block = (
+        4 * 2 * T_a * d_a * d_a
+        + 2 * 2 * T_a * T_a * d_a
+        + 2 * 2 * T_a * d_a * 4 * d_a
+    )
+    dec_block = (
+        4 * 2 * T_t * d_t * d_t
+        + 2 * 2 * T_t * T_t * d_t
+        + 4 * 2 * T_t * d_t * d_t
+        + 2 * 2 * T_t * T_a * d_t
+        + 2 * 2 * T_t * d_t * 4 * d_t
+    )
+    convs = 2 * (2 * T_a) * 3 * dims.n_mels * d_a + 2 * T_a * 3 * d_a * d_a
+    logits = 2 * T_t * d_t * dims.n_vocab
+    return dims.n_audio_layer * enc_block + dims.n_text_layer * dec_block + convs + logits
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain twins
+# ---------------------------------------------------------------------------
+
+# Limits, about 2.5x the worst error measured on the sound kernels over the
+# five shapes of check_attention (H100, PERF.md): max |err| <= tol * max|ref|
+# for o (worst 3.2e-3 of the peak; bf16 output, bf16 P) and dq, dk, dv (worst
+# 4.5e-3; bf16 dS into the products). lse is float32 on both sides: absolute.
+ATTN_TOL_O = 8e-3
+ATTN_TOL_GRAD = 1.2e-2
+ATTN_TOL_LSE = 1e-3
+
+
+def _qkv(B, H, Tq, Tk, gen):
+    """q, k, v in the model's layout: (B, T, H, 64) buffers seen as (B, H, T, 64)."""
+    import torch
+
+    def one(T):
+        return torch.randn((B, T, H, 64), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    return one(Tq), one(Tk), one(Tk)
+
+
+def check_attention(gen) -> dict:
+    import torch
+    from whisper_finetune_torch.ops import attention as A
+
+    scale = 64 ** -0.5
+    worst = {"attn_fwd": 0.0, "attn_bwd_dq": 0.0, "attn_bwd_dkdv": 0.0}
+    for B, H, Tq, Tk, causal in ((2, 20, 1500, 1500, False), (2, 20, 448, 1500, False),
+                                 (1, 3, 77, 131, False), (1, 3, 77, 77, True),
+                                 (1, 2, 200, 200, True)):
+        q, k, v = _qkv(B, H, Tq, Tk, gen)
+        do = torch.randn((B, H, Tq, 64), generator=gen, device="cuda").to(torch.bfloat16)
+        o, lse = A.attn_fwd(q, k, v, causal, scale)
+        dq, delta = A.attn_bwd_dq(q, k, v, o, do, lse, causal, scale)
+        dk, dv = A.attn_bwd_dkdv(q, k, v, do, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        o_r, lse_r = A.attn_fwd_plain(q.float(), k.float(), v.float(), causal, scale)
+        dq_r, delta_r = A.attn_bwd_dq_plain(q.float(), k.float(), v.float(), o_r,
+                                            do.float(), lse_r, causal, scale)
+        dk_r, dv_r = A.attn_bwd_dkdv_plain(q.float(), k.float(), v.float(), do.float(),
+                                           lse_r, delta_r, causal, scale)
+        rows = []
+        for name, kern, ref, tol in (
+            ("o", o, o_r, ATTN_TOL_O), ("lse", lse, lse_r, None),
+            ("dq", dq, dq_r, ATTN_TOL_GRAD), ("dk", dk, dk_r, ATTN_TOL_GRAD),
+            ("dv", dv, dv_r, ATTN_TOL_GRAD),
+        ):
+            err = (kern.float() - ref).abs().max().item()
+            peak = ref.abs().max().item()
+            limit = ATTN_TOL_LSE if tol is None else tol * peak
+            rows.append(f"{name} {err:.3e}/{limit:.3e} ({err / peak:.2e} of peak)")
+            if not err <= limit:  # also catches NaN
+                raise AssertionError(
+                    f"attention {B}x{H}x{Tq}x{Tk} causal={causal}: {name} max abs err "
+                    f"{err} > {limit} (max|ref| {peak})")
+            kernel = {"o": "attn_fwd", "lse": "attn_fwd", "dq": "attn_bwd_dq",
+                      "dk": "attn_bwd_dkdv", "dv": "attn_bwd_dkdv"}[name]
+            worst[kernel] = max(worst[kernel], err)
+        log(f"  attention {B}x{H}x{Tq}x{Tk} causal={int(causal)}: " + ", ".join(rows))
+    return worst
+
+
+def compare_adamw8(label, p, mc, ms, nc, ns, gen, out: dict) -> dict:
+    """Three steps of the kernel and of its plain twin from the same
+    (p, m codes/scales, nu codes/scales), each on its own copy, with fresh
+    bf16 gradients; folds the differences into ``out`` and asserts them."""
+    import torch
+    from whisper_finetune_torch.ops.fused_adamw8 import fused_adamw8_leaf, fused_adamw8_plain
+
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+    kern = [x.clone() for x in (p, mc, ms, nc, ns)]
+    ref = [x.clone() for x in (p, mc, ms, nc, ns)]
+    gs = torch.tensor(0.7, device="cuda")
+    for t in range(1, 4):
+        g = (torch.randn(p.shape, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        c1, c2 = 1.0 - 0.9 ** t, 1.0 - 0.999 ** t
+        fused_adamw8_leaf(kern[0], g, *kern[1:], 1e-3, c1, c2, gs, **hp)
+        ref = list(fused_adamw8_plain(ref[0], g, *ref[1:], 1e-3, c1, c2, gs, **hp))
+    torch.cuda.synchronize()
+    dm = (kern[1].int() - ref[1].int()).abs()
+    dn = (kern[3].int() - ref[3].int()).abs()
+    out["p"] = max(out["p"], (kern[0] - ref[0]).abs().max().item())
+    out["m_codes"] = max(out["m_codes"], dm.max().item())
+    out["n_codes"] = max(out["n_codes"], dn.max().item())
+    out["m_codes_off"] += int((dm > 0).sum().item())
+    out["n_codes_off"] += int((dn > 0).sum().item())
+    for a, b in ((kern[2], ref[2]), (kern[4], ref[4])):
+        out["scale_rel"] = max(out["scale_rel"],
+                               ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item())
+    nb = p.shape[0]
+    log(f"  fused_adamw8 {label} NB={nb} (NB % 128 = {nb % 128}), 3 steps: max|dp| "
+        f"{out['p']:.3e}, m codes off {out['m_codes_off']} (max {out['m_codes']}), "
+        f"nu codes off {out['n_codes_off']} (max {out['n_codes']}), scale rel "
+        f"{out['scale_rel']:.3e}")
+    # Tolerances: p within float32 rounding of |p| <= ~5 (1e-6 is ~2 ulp there);
+    # codes at most one level apart; scales to float32 rounding.
+    if not (out["p"] <= 1e-6 and out["m_codes"] <= 1 and out["n_codes"] <= 1
+            and out["scale_rel"] <= 1e-6):
+        raise AssertionError(f"fused_adamw8 disagrees with its plain version: {out}")
+    return out
+
+
+def check_adamw8(gen) -> dict:
+    """Synthetic leaves from zero moments, NB divisible and not by 128."""
+    import torch
+
+    out = {"p": 0.0, "m_codes": 0, "n_codes": 0, "m_codes_off": 0, "n_codes_off": 0,
+           "scale_rel": 0.0}
+    for nb in (4096, 1003):
+        p = torch.randn((nb, 256), generator=gen, device="cuda")
+        mc = torch.zeros((nb, 256), dtype=torch.int8, device="cuda")
+        nc = torch.zeros((nb, 256), dtype=torch.uint8, device="cuda")
+        ms = torch.zeros((nb, 1), device="cuda")
+        ns = torch.zeros((nb, 1), device="cuda")
+        compare_adamw8("synthetic", p, mc, ms, nc, ns, gen, out)
+    return out
+
+
+def check_adamw8_leaves(model, opt_state, gen, out: dict) -> dict:
+    """The kernel against its twin on copies of large-v3's own leaves and
+    8-bit state after the main path's steps: ``tok_emb`` (NB 259330, not a
+    multiple of 128) and the first (32, 1280, 5120) stacked matrix
+    (NB 819200)."""
+    from whisper_finetune_torch.optim.quantized import BLOCK
+
+    picked = {}
+    for (path, p), mu, nu in zip(model.leaves(), opt_state.mu, opt_state.nu):
+        key = ("tok_emb" if path[-1] == "tok_emb"
+               else "stacked" if tuple(p.shape) == (32, 1280, 5120) else None)
+        if key and key not in picked:
+            picked[key] = ("/".join(path), p, mu, nu)
+    if set(picked) != {"tok_emb", "stacked"}:
+        raise AssertionError(f"large-v3 leaves not found: {sorted(picked)}")
+    for name, p, mu, nu in picked.values():
+        compare_adamw8(name, p.data.view(-1, BLOCK), mu.codes, mu.scale,
+                       nu.codes, nu.scale, gen, out)
+    return out
+
+
+def time_attention(gen, site: str, B, H, Tq, Tk) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from whisper_finetune_torch.ops import attention as A
+
+    scale = 64 ** -0.5
+    q, k, v = _qkv(B, H, Tq, Tk, gen)
+    do = _qkv(B, H, Tq, Tq, gen)[0]  # the gradient of o, in o's layout
+    o, lse = A.attn_fwd(q, k, v, False, scale)
+    dq, delta = A.attn_bwd_dq(q, k, v, o, do, lse, False, scale)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    o_r, lse_r = A.attn_fwd_plain(qf, kf, vf, False, scale)
+    _, delta_r = A.attn_bwd_dq_plain(qf, kf, vf, o_r, dof, lse_r, False, scale)
+
+    bhtd = B * H * Tq * Tk * 64
+    row_q, row_k = B * H * Tq * 64 * 2, B * H * Tk * 64 * 2  # bf16 bytes
+    vec = B * H * Tq * 4
+    rec = {}
+    kernels = {
+        "attn_fwd": (lambda: A.attn_fwd(q, k, v, False, scale),
+                     lambda: A.attn_fwd_plain(qf, kf, vf, False, scale),
+                     lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                     row_q + 2 * row_k + row_q + vec, 4 * bhtd),
+        "attn_bwd_dq": (lambda: A.attn_bwd_dq(q, k, v, o, do, lse, False, scale),
+                        lambda: A.attn_bwd_dq_plain(qf, kf, vf, o_r, dof, lse_r, False, scale),
+                        None, 3 * row_q + 2 * row_k + vec + row_q + vec, 6 * bhtd),
+        "attn_bwd_dkdv": (lambda: A.attn_bwd_dkdv(q, k, v, do, lse, delta, False, scale),
+                          lambda: A.attn_bwd_dkdv_plain(qf, kf, vf, dof, lse_r, delta_r, False, scale),
+                          None, 2 * row_q + 2 * row_k + 2 * vec + 2 * row_k, 8 * bhtd),
+    }
+    for name, (kern, plain, lib, n_bytes, flops) in kernels.items():
+        ms = cuda_time_ms(kern)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        rec[name] = {
+            "site": site, "shape": [B, H, Tq, Tk, 64], "ms": ms,
+            "plain_ms": cuda_time_ms(plain, iters=3),
+            "library_ms": cuda_time_ms(lib) if lib is not None else None,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "flops": flops,
+            "tflops": flops / ms / 1e9,
+        }
+    # The two backward kernels together against the bound of the function
+    # splash's fused backward computes: dq, dk, dv with S = QK^T, dP = dO V^T,
+    # dV, dQ, dK once each (10 BHTD); the split design redoes S and dP (14).
+    # The library's fused backward (one call) is the yardstick.
+    b_ms, b_by = bound_ms(3 * row_q + 2 * row_k + vec + row_q + 2 * row_k, 10 * bhtd)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
+    rec["bwd"] = {
+        "ms": rec["attn_bwd_dq"]["ms"] + rec["attn_bwd_dkdv"]["ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "flops": 10 * bhtd,
+        "library_ms": cuda_time_ms(
+            lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True)),
+    }
+    return rec
+
+
+def time_adamw8(model, opt_state, gen) -> dict:
+    """One step's fused update over every quantized leaf of the main path's
+    model (all of large-v3's quantized leaves divide by 256)."""
+    import torch
+    from whisper_finetune_torch.ops.fused_adamw8 import fused_adamw8_leaf, fused_adamw8_plain
+    from whisper_finetune_torch.optim.quantized import BLOCK, QMoment
+
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+    leaves = []
+    for (_, p), mu, nu in zip(model.leaves(), opt_state.mu, opt_state.nu):
+        if isinstance(mu, QMoment) and p.numel() % BLOCK == 0:
+            g = (torch.randn(p.shape, generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+            leaves.append((p.data.view(-1, BLOCK), g.view(-1, BLOCK), mu, nu))
+    gs = torch.tensor(1.0, device="cuda")
+    c1, c2 = 1.0 - 0.9 ** 8, 1.0 - 0.999 ** 8
+
+    def kern():
+        for p, g, mu, nu in leaves:
+            fused_adamw8_leaf(p, g, mu.codes, mu.scale, nu.codes, nu.scale,
+                              2e-5, c1, c2, gs, **hp)
+
+    def plain():
+        for p, g, mu, nu in leaves:
+            fused_adamw8_plain(p, g, mu.codes, mu.scale, nu.codes, nu.scale,
+                               2e-5, c1, c2, gs, **hp)
+
+    n = sum(p.numel() for p, *_ in leaves)
+    nb = n // BLOCK
+    n_bytes = n * (4 + 4 + 2 + 1 + 1 + 1 + 1) + nb * 4 * 4
+    ms = cuda_time_ms(kern, iters=5)
+    b_ms, b_by = bound_ms(n_bytes, 0.0)
+    return {"site": "all quantized leaves of large-v3", "leaves": len(leaves),
+            "elements": n, "ms": ms, "plain_ms": cuda_time_ms(plain, iters=1),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "gbps": n_bytes / ms / 1e6}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the main path
+# ---------------------------------------------------------------------------
+
+def main_path() -> dict:
+    import numpy as np
+    import torch
+    from whisper_finetune_torch.models import ForwardConfig, get_preset_dims, init_params
+    from whisper_finetune_torch.ops import attention as A
+    from whisper_finetune_torch.ops.attention import resolve_auto_impls
+    from whisper_finetune_torch.ops.fused_adamw8 import fused_adamw8_leaf
+    from whisper_finetune_torch.ops.spec_augment import FeaturizeConfig
+    from whisper_finetune_torch.optim import adamw_8bit
+    from whisper_finetune_torch.optim.quantized import BLOCK, QMoment
+    from whisper_finetune_torch.train import TrainState, make_train_step
+
+    dims = get_preset_dims("large-v3")
+    B = 8
+    model = init_params(dims, device="cuda", seed=0)
+    leaves = [p for _, p in model.leaves()]
+    tx = adamw_8bit(2e-5, weight_decay=0.01)
+    state = TrainState(model, tx.init(leaves), 0)
+    fcfg = ForwardConfig(compute_dtype="bfloat16", **resolve_auto_impls("cuda"))
+    feat = FeaturizeConfig(n_mels=dims.n_mels, spec_augment=True, p=1.0)
+    step = make_train_step(dims, fcfg, tx, 0.1, feat_cfg=feat, max_grad_norm=1.0,
+                           accum_dtype="bfloat16", device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {
+        "audio": torch.from_numpy((rng.standard_normal((1, B, 480000)) * 0.05).astype(np.float32)),
+        "crop_frames": torch.full((1, B), 3000, dtype=torch.int32),
+        "dec_input": torch.from_numpy(rng.integers(0, dims.n_vocab, (1, B, 448)).astype(np.int64)),
+        "dec_output": torch.from_numpy(rng.integers(0, dims.n_vocab, (1, B, 448)).astype(np.int64)),
+    }
+    batch = {k: v.cuda() for k, v in batch.items()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    n_params = sum(p.numel() for p in leaves)
+    fused_leaves = sum(isinstance(mu, QMoment) and p.numel() % BLOCK == 0
+                       for p, mu in zip(leaves, state.opt_state.mu))
+    before = [p.detach()[(0,) * (p.dim() - 1)][:8].clone() for p in leaves]
+    log(f"  large-v3: {n_params} parameters in {len(leaves)} leaves, {fused_leaves} "
+        f"through the fused kernel")
+
+    kernels = (*A.KERNELS, fused_adamw8_leaf)
+    for fn in kernels:
+        fn.launches = 0
+    losses, times = [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        if i == WARMUP_STEPS:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch, gen)
+        loss = float(loss)  # syncs
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses.append(loss)
+        if i >= WARMUP_STEPS:
+            times.append(dt)
+        log(f"  step {i}: loss {loss:.4f}, {dt * 1e3:.1f} ms")
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    sites = dims.n_audio_layer + dims.n_text_layer  # encoder self + cross
+    expect = {
+        "attn_fwd": 2 * sites * n_steps,         # forward + remat recompute
+        "attn_bwd_dq": sites * n_steps,
+        "attn_bwd_dkdv": sites * n_steps,
+        "fused_adamw8_leaf": fused_leaves * n_steps,
+    }
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    # Random init with 0.02-std embeddings gives near-uniform logits.
+    if abs(losses[0] - math.log(dims.n_vocab)) > 0.5:
+        raise AssertionError(f"first loss {losses[0]} far from ln(V) = {math.log(dims.n_vocab)}")
+    changed = sum(not torch.equal(b, p.detach()[(0,) * (p.dim() - 1)][:8])
+                  for b, p in zip(before, leaves))
+    if changed != len(leaves):
+        raise AssertionError(f"only {changed} of {len(leaves)} leaves changed")
+    if state.step != n_steps or state.opt_state.count != n_steps:
+        raise AssertionError(f"step {state.step}, optimizer count {state.opt_state.count}")
+
+    step_s = statistics.median(times)
+    flops = 4 * B * _flops_per_sample(dims)  # forward + remat recompute + backward
+    rec = {
+        "model": "large-v3", "batch": B, "audio_s": 30, "steps_timed": TIMED_STEPS,
+        "step_s_median": step_s, "step_s_all": times, "losses": losses,
+        "audio_hours_per_s": B * 30 / 3600 / step_s,
+        "peak_mem_bytes": peak, "achieved_tflops": flops / step_s / 1e12,
+        "launches": launches, "launches_per_step": {k: v // n_steps for k, v in launches.items()},
+    }
+    log(f"  median step {step_s * 1e3:.1f} ms, {rec['audio_hours_per_s']:.4f} audio-h/s, "
+        f"peak {peak / 2**30:.2f} GiB, {rec['achieved_tflops']:.1f} TFLOP/s "
+        f"(bench.py accounting, 4x forward)")
+    log(f"  launches {launches}")
+    return rec, state, step, batch, gen
+
+
+def profile_steps(step, state, batch, gen, n_steps: int = 2) -> dict:
+    """Device time by kernel over ``n_steps`` main-path steps
+    (``torch.profiler``), grouped, with the device's busy share of the
+    window's wall time. Only with ``--profile``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            state, loss = step(state, batch, gen)
+            loss.item()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    groups = {"attention kernels": ("attn_",), "fused_adamw8": ("fused_adamw8",),
+              "matmul": ("gemm", "xmma", "cutlass", "sm90_", "nvjet"),
+              "convolution": ("conv", "cudnn", "implicit")}
+    by_group = {}
+    for e in kernels:
+        name = e.key.lower()
+        g = next((g for g, keys in groups.items() if any(k in name for k in keys)), "other")
+        by_group[g] = by_group.get(g, 0.0) + e.self_device_time_total
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]
+    log(f"  profile over {n_steps} steps: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{total_us / 1e3:.1f} ms ({100 * total_us / wall_us:.1f}%)")
+    for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        log(f"    {g}: {us / 1e3 / n_steps:.1f} ms/step ({100 * us / total_us:.1f}%)")
+    for e in top:
+        log(f"    {e.self_device_time_total / 1e3 / n_steps:8.2f} ms/step "
+            f"{e.count // n_steps:6d}x  {e.key[:110]}")
+    return {"steps": n_steps, "wall_ms": wall_us / 1e3, "device_ms": total_us / 1e3,
+            "group_ms_per_step": {g: us / 1e3 / n_steps for g, us in by_group.items()},
+            "top": [{"name": e.key, "ms_per_step": e.self_device_time_total / 1e3 / n_steps,
+                     "calls_per_step": e.count / n_steps} for e in top]}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "whisper_finetune_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no whisper_finetune_torch package beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from whisper_finetune_torch import _build
+
+    smi = smi_line()
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    log(f"card: {smi}")
+    libs = _build.libraries(verbose_ptxas=True)
+    log(f"kernels built in {libs.build_seconds:.1f} s")
+    for line in libs.ptxas_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            log("  " + line.strip())
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    log("kernels vs plain twins:")
+    attn_err = check_attention(gen)
+    adam = check_adamw8(gen)
+    log("timing at main-path shapes:")
+    enc = time_attention(gen, "encoder self-attention", 8, 20, 1500, 1500)
+    cross = time_attention(gen, "cross-attention", 8, 20, 448, 1500)
+    for site in (enc, cross):
+        for name in A_NAMES:
+            r = site[name]
+            log(f"  {name} [{r['site']}]: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
+                f"library {r['library_ms']}, bound {r['bound_ms']:.3f} by {r['bound_by']}, "
+                f"{r['tflops']:.1f} TFLOP/s)")
+        bwd = site["bwd"]
+        log(f"  backward dq+dkdv [{site[A_NAMES[0]]['site']}]: {bwd['ms']:.3f} ms (fused "
+            f"bound {bwd['bound_ms']:.3f} by {bwd['bound_by']}, library "
+            f"{bwd['library_ms']:.3f})")
+
+    log("main path:")
+    main_rec, state, step, batch, step_gen = main_path()
+    if "--profile" in sys.argv[1:]:
+        main_rec["profile"] = profile_steps(step, state, batch, step_gen)
+    log("fused_adamw8 vs plain twin on large-v3's own leaves and state:")
+    adam = check_adamw8_leaves(state.model, state.opt_state, gen, adam)
+    adam_t = time_adamw8(state.model, state.opt_state, gen)
+    log(f"  fused_adamw8 over {adam_t['leaves']} leaves ({adam_t['elements']} elements): "
+        f"{adam_t['ms']:.3f} ms (plain {adam_t['plain_ms']:.3f}, bound "
+        f"{adam_t['bound_ms']:.3f}, {adam_t['gbps']:.0f} GB/s)")
+
+    per_step = main_rec["launches_per_step"]
+    sources = {
+        "attn_fwd": "whisper_finetune_tpu/ops/attention.py:236 (splash_mha forward)",
+        "attn_bwd_dq": "whisper_finetune_tpu/ops/attention.py:236 (splash_mha fused_bwd, dq)",
+        "attn_bwd_dkdv": "whisper_finetune_tpu/ops/attention.py:236 (splash_mha fused_bwd, dk/dv)",
+    }
+    kernels = []
+    for name in A_NAMES:
+        r = enc[name]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "whisper_finetune_torch/csrc/attention.cu",
+            "replaces": sources[name], "launches": main_rec["launches"][name],
+            "max_abs_err": attn_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "launches_per_step": per_step[name],
+            "shape": r["shape"], "cross": {k: cross[name][k] for k in
+                                           ("shape", "ms", "plain_ms", "library_ms", "bound_ms")},
+        }
+        if name != "attn_fwd":
+            # dq and dk/dv together against the fused backward's bound
+            entry["bwd_dq_plus_dkdv"] = {
+                site: {k: rec["bwd"][k] for k in ("ms", "bound_ms", "library_ms")}
+                for site, rec in (("encoder", enc), ("cross", cross))}
+        kernels.append(entry)
+    kernels.append({
+        "name": "fused_adamw8", "route": "cuda",
+        "source": "whisper_finetune_torch/csrc/fused_adamw8.cu",
+        "replaces": "whisper_finetune_tpu/ops/fused_adamw8.py:132 (fused_adamw8_leaf)",
+        "launches": main_rec["launches"]["fused_adamw8_leaf"], "max_abs_err": adam["p"],
+        "ms": adam_t["ms"], "plain_ms": adam_t["plain_ms"], "bound_ms": adam_t["bound_ms"],
+        "bound_by": adam_t["bound_by"], "library_ms": None,
+        "launches_per_step": per_step["fused_adamw8_leaf"],
+        "codes_off_by_one": {"m": adam["m_codes_off"], "nu": adam["n_codes_off"]},
+    })
+
+    record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "build_s": libs.build_seconds, "kernels": kernels, "attention_timing":
+              {"encoder": enc, "cross": cross}, "adamw8_timing": adam_t,
+              "adamw8_check": adam, "main_path": main_rec}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+
+    print(json.dumps({"kernels": kernels}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,101 @@
+"""The port's CUDA kernels against their plain twins on the card, at small
+shapes (``chip_smoke.py`` holds them at the main path's). Marked ``cuda``:
+they skip where ``torch.cuda.is_available()`` is false. On a card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return gen
+
+
+@pytest.mark.parametrize("Tq,Tk,causal", [(77, 131, False), (150, 150, False),
+                                          (24, 150, False), (200, 200, True)])
+def test_attention_kernels_match_plain(card, Tq, Tk, causal):
+    from whisper_finetune_torch.ops import attention as A
+
+    B, H, scale = 2, 3, 0.125
+
+    def heads(T):  # the model's layout: (B, T, H, 64) seen as (B, H, T, 64)
+        return torch.randn((B, T, H, 64), generator=card, device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = heads(Tq), heads(Tk), heads(Tk), heads(Tq)
+    counts = [fn.launches for fn in A.KERNELS]
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    o = A.splash_mha(qr, kr, vr, causal=causal, sm_scale=scale)
+    o.backward(do)
+    assert [fn.launches - c for fn, c in zip(A.KERNELS, counts)] == [1, 1, 1]
+    o_r, lse_r = A.attn_fwd_plain(q.float(), k.float(), v.float(), causal, scale)
+    dq_r, delta_r = A.attn_bwd_dq_plain(q.float(), k.float(), v.float(), o_r, do.float(),
+                                        lse_r, causal, scale)
+    dk_r, dv_r = A.attn_bwd_dkdv_plain(q.float(), k.float(), v.float(), do.float(), lse_r,
+                                       delta_r, causal, scale)
+    # bf16 in and out against float32 math: 2% (output) and 5% (gradients)
+    # of the largest reference value, plus 1e-3.
+    for got, ref, tol in ((o, o_r, 0.02), (qr.grad, dq_r, 0.05), (kr.grad, dk_r, 0.05),
+                          (vr.grad, dv_r, 0.05)):
+        err = (got.float() - ref).abs().max().item()
+        assert err <= tol * ref.abs().max().item() + 1e-3
+
+
+@pytest.mark.parametrize("nb", [256, 100])
+def test_fused_adamw8_kernel_matches_plain(card, nb):
+    from whisper_finetune_torch.ops.fused_adamw8 import fused_adamw8_leaf, fused_adamw8_plain
+
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+    state = [torch.randn((nb, 256), generator=card, device="cuda"),
+             torch.zeros((nb, 256), dtype=torch.int8, device="cuda"),
+             torch.zeros((nb, 1), device="cuda"),
+             torch.zeros((nb, 256), dtype=torch.uint8, device="cuda"),
+             torch.zeros((nb, 1), device="cuda")]
+    ref = [x.clone() for x in state]
+    gs = torch.tensor(0.5, device="cuda")
+    for t in range(1, 4):
+        g = (torch.randn((nb, 256), generator=card, device="cuda") * 0.1).to(torch.bfloat16)
+        c1, c2 = 1 - 0.9 ** t, 1 - 0.999 ** t
+        fused_adamw8_leaf(state[0], g, *state[1:], 1e-3, c1, c2, gs, **hp)
+        ref = list(fused_adamw8_plain(ref[0], g, *ref[1:], 1e-3, c1, c2, gs, **hp))
+    # Same operations in the same order on the same card's libm, no FMA
+    # contraction in the kernel: bit-identical.
+    for got, want in zip(state, ref):
+        assert torch.equal(got, want)
+
+
+def test_train_step_on_card(card):
+    from whisper_finetune_torch.models import ModelDimensions, init_params
+    from whisper_finetune_torch.models.whisper import ForwardConfig
+    from whisper_finetune_torch.ops.attention import resolve_auto_impls
+    from whisper_finetune_torch.optim import adamw_8bit
+    from whisper_finetune_torch.train import TrainState, make_train_step
+
+    dims = ModelDimensions(n_mels=80, n_audio_ctx=150, n_audio_state=128, n_audio_head=2,
+                           n_audio_layer=2, n_vocab=500, n_text_ctx=24, n_text_state=128,
+                           n_text_head=2, n_text_layer=2)
+    model = init_params(dims, seed=0)  # the default device is the card
+    assert next(model.parameters()).is_cuda
+    tx = adamw_8bit(3e-3)
+    state = TrainState(model, tx.init([p for _, p in model.leaves()]), 0)
+    step = make_train_step(dims, ForwardConfig(**resolve_auto_impls("cuda")), tx, 0.1,
+                           max_grad_norm=1.0, accum_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    batch = {"mel": torch.from_numpy(rng.standard_normal((1, 2, 80, 300)).astype(np.float32)),
+             "dec_input": torch.from_numpy(rng.integers(0, 500, (1, 2, 24))),
+             "dec_output": torch.from_numpy(rng.integers(0, 500, (1, 2, 24)))}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    losses = []
+    for _ in range(4):
+        state, loss = step(state, batch)
+        losses.append(loss.item())
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -1,0 +1,406 @@
+"""Whisper encoder-decoder, the port of ``whisper_finetune_tpu/models/whisper.py``.
+
+Parameters keep the JAX package's pytree and layout exactly: linear kernels
+(in, out), conv kernels (width, in, out), block weights stacked on a leading
+layer axis, ``(L, in, out)`` per leaf. :class:`Whisper` holds that tree as
+``nn.Parameter``s; the forward functions are plain functions over the nested
+dict that :meth:`Whisper.params` returns, mirroring the JAX functions one for
+one. Keeping the stacked layout matters to the optimizer: every leaf flattens
+in the same order as in JAX, so the 8-bit AdamW's 256-element blocks and its
+``MIN_QUANT_SIZE`` decisions match the reference, and its kernel launches
+once per stacked leaf.
+
+Each forward takes the per-layer views with ONE ``unbind(0)`` per stacked
+leaf (its backward is a single stack; indexing ``w[i]`` in the layer loop
+would make autograd build a zero-padded full-size gradient per layer). In a
+bf16 forward the stacked matrices are first cast once (``w.to(bf16)``, the
+counterpart of ``_cast_blocks_once``), which is numerically the cast that
+``_dense`` would do at use.
+
+Precision policy: parameters float32, matmuls and convs in ``compute_dtype``,
+layer norms and softmax in float32, the tied logits stored in the compute
+dtype and then upcast. ``remat_policy="full"`` is
+``torch.utils.checkpoint`` (non-reentrant) around each block.
+
+A float32 forward on the card would run the stem's convolutions through
+cuDNN in TF32 unless ``torch.backends.cudnn.allow_tf32`` is off; the main
+path computes in bf16, where this does not arise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from whisper_finetune_torch._device import resolve_device
+from whisper_finetune_torch.models.dims import ModelDimensions
+from whisper_finetune_torch.ops.attention import attention
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Static forward configuration
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ForwardConfig:
+    """The JAX ``ForwardConfig`` fields. Values the port does not run yet
+    raise ``NotImplementedError`` from :meth:`check_supported`."""
+
+    compute_dtype: str = "bfloat16"
+    remat_encoder: bool = True
+    remat_encoder_last_only: bool = False
+    remat_decoder: bool = True
+    remat_policy: str = "full"
+    stochastic_depth: float = 0.0
+    stochastic_depth_encoder: Optional[float] = None
+    stochastic_depth_decoder: Optional[float] = None
+    dsa_apply: bool = False
+    dsa_time_mask_param: int = 100
+    dsa_freq_mask_param: int = 27
+    dsa_p: float = 1.0
+    dsa_layer_indices: Optional[Tuple[int, ...]] = None
+    lora_scale: float = 0.0
+    lora_dropout: float = 0.0
+    attn_impl: str = "xla"
+    attn_impl_encoder: Optional[str] = None
+    attn_impl_decoder: Optional[str] = None
+    attn_impl_cross: Optional[str] = None
+    precast_weights: bool = True
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+    @property
+    def enc_attn(self) -> str:
+        return self.attn_impl_encoder or self.attn_impl
+
+    @property
+    def dec_attn(self) -> str:
+        return self.attn_impl_decoder or self.attn_impl
+
+    @property
+    def cross_attn(self) -> str:
+        return self.attn_impl_cross or self.attn_impl
+
+    def check_supported(self) -> None:
+        later = "ROADMAP queue 1, item 3 (remaining ForwardConfig features)"
+        unported = {
+            "remat_policy": self.remat_policy != "full",
+            "remat_encoder_last_only": self.remat_encoder_last_only,
+            "stochastic_depth": bool(self.stochastic_depth
+                                     or self.stochastic_depth_encoder
+                                     or self.stochastic_depth_decoder),
+            "dsa_apply (deep SpecAugment)": self.dsa_apply,
+            "precast_weights=False": not self.precast_weights,
+        }
+        for name, hit in unported.items():
+            if hit:
+                raise NotImplementedError(f"ForwardConfig {name} is not ported yet: {later}")
+        if self.lora_scale or self.lora_dropout:
+            raise NotImplementedError(
+                "ForwardConfig LoRA is not ported yet: ROADMAP queue 1, item 8"
+            )
+
+
+# ---------------------------------------------------------------------------
+# Parameter tree
+# ---------------------------------------------------------------------------
+
+def flatten(tree: Params, prefix: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) pairs in JAX's flatten order (dict keys sorted)."""
+    out = []
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, dict):
+            out.extend(flatten(val, prefix + (key,)))
+        else:
+            out.append((prefix + (key,), val))
+    return out
+
+
+def _set(tree: Params, path: Tuple[str, ...], value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+class _Tree(nn.Module):
+    """A nested dict of tensors as child modules and parameters."""
+
+    def __init__(self, tree: Params):
+        super().__init__()
+        for key in sorted(tree):
+            val = tree[key]
+            if isinstance(val, dict):
+                self.add_module(key, _Tree(val))
+            else:
+                self.register_parameter(key, nn.Parameter(val))
+
+    def as_dict(self) -> Params:
+        out: Params = dict(self._parameters)
+        for name, child in self._modules.items():
+            out[name] = child.as_dict()
+        return out
+
+
+class Whisper(nn.Module):
+    """The Whisper parameter tree (JAX layout) and its forward."""
+
+    def __init__(self, dims: ModelDimensions, params: Params):
+        super().__init__()
+        self.dims = dims
+        self.tree = _Tree(params)
+
+    def params(self) -> Params:
+        """The nested dict of parameters the forward functions take."""
+        return self.tree.as_dict()
+
+    def leaves(self) -> List[Tuple[Tuple[str, ...], nn.Parameter]]:
+        """(path, parameter) in JAX's flatten order: the optimizer's order."""
+        return flatten(self.params())
+
+    def forward(self, mel: torch.Tensor, tokens: torch.Tensor,
+                fcfg: ForwardConfig = ForwardConfig(), train: bool = False) -> torch.Tensor:
+        return forward_impl(self.params(), mel, tokens, self.dims, fcfg, train)
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
+    """Sinusoidal position embedding, openai-whisper's recipe."""
+    assert channels % 2 == 0
+    log_timescale_increment = np.log(max_timescale) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_timescale_increment * np.arange(channels // 2))
+    scaled_time = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled_time), np.cos(scaled_time)], axis=1).astype(
+        np.float32
+    )
+
+
+def init_params(dims: ModelDimensions, generator: Optional[torch.Generator] = None,
+                device="cuda", seed: int = 0) -> Whisper:
+    """Random initialization (torch-Linear-style uniform, normal embeddings),
+    the distributions of the JAX ``init_params`` drawn from ``generator`` (a
+    ``torch.Generator`` on ``device``; one seeded with ``seed`` if None)."""
+    dev = resolve_device(device)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+
+    def uniform(fan_in: int, shape) -> torch.Tensor:
+        bound = 1.0 / np.sqrt(fan_in)
+        return torch.empty(shape, dtype=torch.float32, device=dev).uniform_(
+            -bound, bound, generator=gen)
+
+    def zeros(*shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    def ln(*lead, d) -> Params:
+        return {"scale": torch.ones((*lead, d), dtype=torch.float32, device=dev),
+                "bias": zeros(*lead, d)}
+
+    def attn(L: int, d: int) -> Params:
+        return {
+            "q_w": uniform(d, (L, d, d)), "q_b": zeros(L, d),
+            "k_w": uniform(d, (L, d, d)),
+            "v_w": uniform(d, (L, d, d)), "v_b": zeros(L, d),
+            "o_w": uniform(d, (L, d, d)), "o_b": zeros(L, d),
+        }
+
+    def blocks(L: int, d: int, cross: bool) -> Params:
+        out = {
+            "attn": attn(L, d),
+            "attn_ln": ln(L, d=d),
+            "mlp": {
+                "fc1_w": uniform(d, (L, d, 4 * d)), "fc1_b": zeros(L, 4 * d),
+                "fc2_w": uniform(4 * d, (L, 4 * d, d)), "fc2_b": zeros(L, d),
+            },
+            "mlp_ln": ln(L, d=d),
+        }
+        if cross:
+            out["cross_attn"] = attn(L, d)
+            out["cross_attn_ln"] = ln(L, d=d)
+        return out
+
+    d_a, d_t = dims.n_audio_state, dims.n_text_state
+    params = {
+        "encoder": {
+            "conv1": {"w": uniform(dims.n_mels * 3, (3, dims.n_mels, d_a)), "b": zeros(d_a)},
+            "conv2": {"w": uniform(d_a * 3, (3, d_a, d_a)), "b": zeros(d_a)},
+            "blocks": blocks(dims.n_audio_layer, d_a, cross=False),
+            "ln_post": ln(d=d_a),
+        },
+        "decoder": {
+            "tok_emb": torch.randn((dims.n_vocab, d_t), generator=gen, device=dev) * 0.02,
+            "pos_emb": torch.randn((dims.n_text_ctx, d_t), generator=gen, device=dev) * 0.01,
+            "blocks": blocks(dims.n_text_layer, d_t, cross=True),
+            "ln": ln(d=d_t),
+        },
+    }
+    return Whisper(dims, params)
+
+
+# ---------------------------------------------------------------------------
+# Core ops
+# ---------------------------------------------------------------------------
+
+def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32, cast back to x's dtype."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), p["scale"].float(), p["bias"].float(), eps)
+    return y.to(x.dtype)
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+           dtype: torch.dtype) -> torch.Tensor:
+    y = torch.matmul(x.to(dtype), w.to(dtype))
+    if b is not None:
+        y = y + b.to(dtype)
+    return y
+
+
+def multi_head_attention(x: torch.Tensor, kv: torch.Tensor, p: Params, n_head: int,
+                         dtype: torch.dtype, causal: bool = False,
+                         impl: str = "xla") -> torch.Tensor:
+    """Whisper MHA: q/k/v projections, attention with sm_scale = d_head**-0.5
+    (``impl`` picks the plain path or the kernels), output projection."""
+    B, T, d = x.shape
+    S = kv.shape[1]
+    d_head = d // n_head
+    q = _dense(x, p["q_w"], p["q_b"], dtype).view(B, T, n_head, d_head)
+    k = _dense(kv, p["k_w"], None, dtype).view(B, S, n_head, d_head)
+    v = _dense(kv, p["v_w"], p["v_b"], dtype).view(B, S, n_head, d_head)
+    o = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  causal=causal, sm_scale=float(d_head) ** -0.5, impl=impl)
+    o = o.transpose(1, 2).reshape(B, T, d).to(dtype)
+    return _dense(o, p["o_w"], p["o_b"], dtype)
+
+
+def _mlp(x: torch.Tensor, p: Params, dtype: torch.dtype) -> torch.Tensor:
+    h = F.gelu(_dense(x, p["fc1_w"], p["fc1_b"], dtype))  # exact erf GELU
+    return _dense(h, p["fc2_w"], p["fc2_b"], dtype)
+
+
+def _encoder_block(x: torch.Tensor, bp: Params, fcfg: ForwardConfig,
+                   n_head: int) -> torch.Tensor:
+    dtype = fcfg.dtype
+    x_ln = layer_norm(x, bp["attn_ln"])
+    x = x + multi_head_attention(x_ln, x_ln, bp["attn"], n_head, dtype,
+                                 impl=fcfg.enc_attn)
+    return x + _mlp(layer_norm(x, bp["mlp_ln"]), bp["mlp"], dtype)
+
+
+def _decoder_block(x: torch.Tensor, bp: Params, xa: torch.Tensor,
+                   fcfg: ForwardConfig, n_head: int) -> torch.Tensor:
+    dtype = fcfg.dtype
+    x_ln = layer_norm(x, bp["attn_ln"])
+    x = x + multi_head_attention(x_ln, x_ln, bp["attn"], n_head, dtype,
+                                 causal=True, impl=fcfg.dec_attn)
+    x_lnc = layer_norm(x, bp["cross_attn_ln"])
+    x = x + multi_head_attention(x_lnc, xa, bp["cross_attn"], n_head, dtype,
+                                 impl=fcfg.cross_attn)
+    return x + _mlp(layer_norm(x, bp["mlp_ln"]), bp["mlp"], dtype)
+
+
+def _layer_views(blocks: Params, n_layers: int, dtype: torch.dtype) -> List[Params]:
+    """Per-layer dicts from the stacked tree: one ``unbind(0)`` per leaf,
+    after casting the stacked (L, in, out) matrices to the compute dtype once
+    (the counterpart of ``_cast_blocks_once``; 1-D-per-layer leaves stay
+    float32 and are cast at use, as in JAX)."""
+    layers: List[Params] = [{} for _ in range(n_layers)]
+    for path, a in flatten(blocks):
+        if dtype != torch.float32 and a.dtype == torch.float32 and a.dim() >= 3:
+            a = a.to(dtype)
+        for i, view in enumerate(a.unbind(0)):
+            _set(layers[i], path, view)
+    return layers
+
+
+def _run_block(fn, remat: bool, *args):
+    if remat and torch.is_grad_enabled():
+        # The forward draws no random numbers, so no RNG state is stashed.
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# Shared forward segments
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=4)
+def _sinusoids_cached(length: int, channels: int) -> np.ndarray:
+    return sinusoids(length, channels)
+
+
+def conv_stem(enc: Params, mel: torch.Tensor, dims: ModelDimensions,
+              dtype: torch.dtype) -> torch.Tensor:
+    """Conv1 -> GELU -> conv2 (stride 2) -> GELU -> + sinusoidal positions.
+    mel (B, n_mels, 3000) -> (B, n_audio_ctx, d) in the compute dtype. The
+    (width, in, out) kernels are laid out for ``conv1d`` here."""
+    x = mel.to(dtype)
+    w1 = enc["conv1"]["w"].to(dtype).permute(2, 1, 0)
+    x = F.gelu(F.conv1d(x, w1, padding=1) + enc["conv1"]["b"].to(dtype)[:, None])
+    w2 = enc["conv2"]["w"].to(dtype).permute(2, 1, 0)
+    x = F.gelu(F.conv1d(x, w2, stride=2, padding=1) + enc["conv2"]["b"].to(dtype)[:, None])
+    x = x.transpose(1, 2)
+    pos = torch.from_numpy(_sinusoids_cached(dims.n_audio_ctx, dims.n_audio_state))
+    pos = pos.to(device=x.device, dtype=dtype)
+    return (x + pos[None, : x.shape[1]]).to(dtype)
+
+
+def decoder_embed(dec: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Token + learned positional embedding -> (B, T, d) in the compute dtype."""
+    T = tokens.shape[-1]
+    return (F.embedding(tokens, dec["tok_emb"]) + dec["pos_emb"][:T]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Encoder / decoder forwards
+# ---------------------------------------------------------------------------
+
+def encoder_forward(params: Params, mel: torch.Tensor, dims: ModelDimensions,
+                    fcfg: ForwardConfig, train: bool = False) -> torch.Tensor:
+    """mel (B, n_mels, 3000) -> audio features (B, n_audio_ctx, d), float32."""
+    fcfg.check_supported()
+    enc = params["encoder"]
+    x = conv_stem(enc, mel, dims, fcfg.dtype)
+    for bp in _layer_views(enc["blocks"], dims.n_audio_layer, fcfg.dtype):
+        x = _run_block(_encoder_block, fcfg.remat_encoder, x, bp, fcfg, dims.n_audio_head)
+    return layer_norm(x, enc["ln_post"]).float()
+
+
+def decoder_forward(params: Params, tokens: torch.Tensor, xa: torch.Tensor,
+                    dims: ModelDimensions, fcfg: ForwardConfig,
+                    train: bool = False) -> torch.Tensor:
+    """tokens (B, T) int, xa (B, S, d) -> logits (B, T, n_vocab) float32."""
+    fcfg.check_supported()
+    dec = params["decoder"]
+    dtype = fcfg.dtype
+    x = decoder_embed(dec, tokens, dtype)
+    xa = xa.to(dtype)
+    for bp in _layer_views(dec["blocks"], dims.n_text_layer, dtype):
+        x = _run_block(_decoder_block, fcfg.remat_decoder, x, bp, xa, fcfg, dims.n_text_head)
+    x = layer_norm(x, dec["ln"])
+    # Tied output embedding: stored in the compute dtype, upcast for the loss.
+    logits = torch.matmul(x.to(dtype), dec["tok_emb"].to(dtype).t())
+    return logits.float()
+
+
+def forward_impl(params: Params, mel: torch.Tensor, tokens: torch.Tensor,
+                 dims: ModelDimensions, fcfg: ForwardConfig,
+                 train: bool = False) -> torch.Tensor:
+    """Teacher-forced forward: (mel, decoder tokens) -> float32 logits."""
+    xa = encoder_forward(params, mel, dims, fcfg, train)
+    return decoder_forward(params, tokens, xa, dims, fcfg, train)

@@ -1,0 +1,312 @@
+"""Attention for the transformer, the port of ``whisper_finetune_tpu/ops/attention.py``.
+
+Two implementations, picked per call site by :func:`attention`:
+
+* ``"xla"``: :func:`xla_mha`, the reference-faithful plain path. q and k are
+  each scaled by ``sm_scale**0.5``, the scores are stored in the compute
+  dtype, the softmax runs in float32 and the probabilities are cast back.
+  The decoder's causal self-attention always takes this path, as in JAX.
+* ``"splash"``: :func:`splash_mha`, the port of the TPU's splash-attention
+  kernels (``ops/attention.py:236 splash_mha``, built by ``_splash_kernel``,
+  variant ``fused_bwd``): one ``torch.autograd.Function`` whose forward and
+  backward are the three CUDA kernels of ``csrc/attention.cu``:
+
+  - ``attn_fwd``: flash-style forward, one block per (batch*head, 64-row
+    q-tile), online softmax in float32, writes O (bf16) and the per-row
+    log-sum-exp (float32);
+  - ``attn_bwd_dq``: one block per (batch*head, q-tile); computes
+    ``delta = rowsum(dO * O)`` for its rows (and writes it for the next
+    kernel), then loops over the key tiles accumulating dQ in float32 with
+    no atomics;
+  - ``attn_bwd_dkdv``: one block per (batch*head, 64-key tile); loops over
+    the q-tiles rebuilding P from the saved log-sum-exp and accumulates dK
+    and dV in float32.
+
+  What bounds them on an H100: tensor-core operations (4*B*H*Tq*Tk*64 FLOP
+  forward; 6x and 8x B*H*Tq*Tk*64 for the two backward kernels, which each
+  rebuild P) against 989 TFLOP/s bf16; the bytes are a few percent of that.
+  The design keeps every (64 x 64) score tile in registers, so nothing of
+  size Tq*Tk touches device memory, and masks Tq and Tk inside the kernels,
+  so 1500 and 448 need no padding to 128 and there are no garbage rows
+  (splash pads and points padded query rows at key 0). The products are
+  ``mma.sync`` m16n8k16 bf16 with float32 accumulators and no software
+  pipelining; ``wgmma``/TMA come later.
+
+  q is pre-scaled by ``sm_scale`` as splash does (0.125 is exact in bf16);
+  the kernels apply it to the float32 scores, which is the same number.
+
+Each kernel wrapper has its plain twin here (``*_plain``: splash's math in
+float32, outputs in the input dtype). A wrapper takes its twin only for a CPU
+tensor; for a CUDA tensor it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+HEAD_DIM = 64  # the kernels' head width (every Whisper preset uses 64)
+
+
+# ---------------------------------------------------------------------------
+# Plain paths
+# ---------------------------------------------------------------------------
+
+def xla_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool = False, sm_scale: float = 1.0) -> torch.Tensor:
+    """q (B, H, Tq, D), k/v (B, H, Tk, D) -> (B, H, Tq, D): scores in the
+    compute dtype (float32 accumulation), softmax in float32, probabilities
+    cast back."""
+    dtype = q.dtype
+    Tq, Tk = q.shape[2], k.shape[2]
+    scale = sm_scale ** 0.5
+    qk = torch.matmul(q * scale, (k * scale).transpose(-1, -2)).float()
+    if causal:
+        qk = qk + torch.full((Tq, Tk), float("-inf"), device=q.device).triu(1)
+    w = torch.softmax(qk, dim=-1).to(dtype)
+    return torch.matmul(w, v)
+
+
+def _scores(q, k, causal: bool, sm_scale: float) -> torch.Tensor:
+    """float32 scaled scores, causal positions (key > query) at -inf."""
+    s = torch.matmul(q.float() * sm_scale, k.float().transpose(-1, -2))
+    if causal:
+        Tq, Tk = s.shape[-2:]
+        keep = torch.ones((Tq, Tk), dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    return s
+
+
+def attn_fwd_plain(q, k, v, causal: bool, sm_scale: float):
+    """Plain twin of ``attn_fwd``: (o in q's dtype, lse (B, H, Tq) float32)."""
+    s = _scores(q, k, causal, sm_scale)
+    lse = torch.logsumexp(s, dim=-1)
+    o = torch.matmul(torch.exp(s - lse[..., None]), v.float())
+    return o.to(q.dtype), lse
+
+
+def attn_bwd_dq_plain(q, k, v, o, do, lse, causal: bool, sm_scale: float):
+    """Plain twin of ``attn_bwd_dq``: (dq in q's dtype, delta float32)."""
+    delta = (do.float() * o.float()).sum(-1)
+    p = torch.exp(_scores(q, k, causal, sm_scale) - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None])
+    dq = torch.matmul(ds, k.float()) * sm_scale
+    return dq.to(q.dtype), delta
+
+
+def attn_bwd_dkdv_plain(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
+    """Plain twin of ``attn_bwd_dkdv``: (dk, dv) in k's dtype."""
+    p = torch.exp(_scores(q, k, causal, sm_scale) - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None])
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * sm_scale
+    dv = torch.matmul(p.transpose(-1, -2), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _lib():
+    from whisper_finetune_torch._build import libraries
+
+    lib = libraries()["attention"]
+    if not getattr(lib, "_wft_bound", False):
+        P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        dims = [I, I, I, I, L, L, L, L, L, L, F, I, P]
+        lib.wft_attn_fwd.argtypes = [P] * 5 + dims
+        lib.wft_attn_bwd_dq.argtypes = [P] * 8 + dims
+        lib.wft_attn_bwd_dkdv.argtypes = [P] * 8 + dims
+        for fn in (lib.wft_attn_fwd, lib.wft_attn_bwd_dq, lib.wft_attn_bwd_dkdv):
+            fn.restype = ctypes.c_int
+        lib._wft_bound = True
+    return lib
+
+
+def _kernel_ready(x: torch.Tensor) -> bool:
+    """The kernels read 16-byte rows: head dim contiguous, every other
+    stride a multiple of 8 elements, base 16-byte aligned."""
+    return (
+        x.stride(-1) == 1
+        and all(s % 8 == 0 for s in x.stride()[:-1])
+        and x.data_ptr() % 16 == 0
+    )
+
+
+def _as_layout(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """x with ref's strides (a copy only where they differ)."""
+    if x.stride() == ref.stride():
+        return x
+    out = torch.empty_like(ref)
+    out.copy_(x)
+    return out
+
+
+def _prep(q, k, v):
+    """Check the inputs of a kernel launch and give them the layouts the
+    kernels take: q (and o, do) one stride set, k and v another."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be bfloat16, got {x.dtype}")
+        if x.dim() != 4 or x.shape[-1] != HEAD_DIM:
+            raise ValueError(f"{name} must be (B, H, T, {HEAD_DIM}), got {tuple(x.shape)}")
+    if q.shape[:2] != k.shape[:2] or k.shape != v.shape:
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if not _kernel_ready(q):
+        q = q.contiguous()
+    if not _kernel_ready(k):
+        k = k.contiguous()
+    v = _as_layout(v, k)
+    if not _kernel_ready(v):
+        k, v = k.contiguous(), v.contiguous()
+    return q, k, v
+
+
+def _dims(q, k, sm_scale, causal):
+    B, H, Tq, _ = q.shape
+    Tk = k.shape[2]
+    return [B, H, Tq, Tk, *q.stride()[:3], *k.stride()[:3],
+            float(sm_scale), int(bool(causal))]
+
+
+def attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward kernel: -> (o (B, H, Tq, 64) bf16 with q's strides,
+    lse (B, H, Tq) float32)."""
+    if q.device.type == "cpu":
+        return attn_fwd_plain(q, k, v, causal, sm_scale)
+    from whisper_finetune_torch._build import check, stream_ptr
+
+    q, k, v = _prep(q, k, v)
+    B, H, Tq, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    rc = lib.wft_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          o.data_ptr(), lse.data_ptr(),
+                          *_dims(q, k, sm_scale, causal), stream_ptr())
+    check(lib, rc, "attn_fwd")
+    attn_fwd.launches += 1
+    return o, lse
+
+
+attn_fwd.launches = 0
+
+
+def attn_bwd_dq(q, k, v, o, do, lse, causal: bool, sm_scale: float):
+    """dQ kernel; also returns delta = rowsum(dO * O) (B, H, Tq) float32,
+    which :func:`attn_bwd_dkdv` reads. o and do take q's strides."""
+    if q.device.type == "cpu":
+        return attn_bwd_dq_plain(q, k, v, o, do, lse, causal, sm_scale)
+    from whisper_finetune_torch._build import check, stream_ptr
+
+    q, k, v = _prep(q, k, v)
+    o, do = _as_layout(o, q), _as_layout(do.to(torch.bfloat16), q)
+    B, H, Tq, _ = q.shape
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    lib = _lib()
+    rc = lib.wft_attn_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                             delta.data_ptr(), dq.data_ptr(),
+                             *_dims(q, k, sm_scale, causal), stream_ptr())
+    check(lib, rc, "attn_bwd_dq")
+    attn_bwd_dq.launches += 1
+    return dq, delta
+
+
+attn_bwd_dq.launches = 0
+
+
+def attn_bwd_dkdv(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
+    """dK/dV kernel (outputs with k's strides)."""
+    if q.device.type == "cpu":
+        return attn_bwd_dkdv_plain(q, k, v, do, lse, delta, causal, sm_scale)
+    from whisper_finetune_torch._build import check, stream_ptr
+
+    q, k, v = _prep(q, k, v)
+    do = _as_layout(do.to(torch.bfloat16), q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(k)
+    lib = _lib()
+    rc = lib.wft_attn_bwd_dkdv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                               dk.data_ptr(), dv.data_ptr(),
+                               *_dims(q, k, sm_scale, causal), stream_ptr())
+    check(lib, rc, "attn_bwd_dkdv")
+    attn_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+attn_bwd_dkdv.launches = 0
+
+
+class _SplashAttention(torch.autograd.Function):
+    """Forward and backward are the kernels (their plain twins on the CPU);
+    saves q, k, v, o and the (B, H, Tq) log-sum-exp. Each kernel wrapper
+    lays out its own inputs; the model's q, k, v views already have the
+    kernels' layout, so nothing is copied."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        o, lse = attn_fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, delta = attn_bwd_dq(q, k, v, o, do, lse, ctx.causal, ctx.sm_scale)
+        dk, dv = attn_bwd_dkdv(q, k, v, do, lse, delta, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def splash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool = False, sm_scale: float = 1.0) -> torch.Tensor:
+    """q (B, H, Tq, 64), k/v (B, H, Tk, 64) -> (B, H, Tq, 64). CUDA: the
+    kernels (bf16 only). CPU: their plain twins, any float dtype."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"splash_mha: unsupported device {q.device}")
+    return _SplashAttention.apply(q, k, v, causal, sm_scale)
+
+
+KERNELS = (attn_fwd, attn_bwd_dq, attn_bwd_dkdv)  # each carries a .launches count
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+def resolve_auto_impls(device) -> dict:
+    """ForwardConfig attention fields for ``attn_impl: auto``: on CUDA the
+    kernels serve the encoder self-attention and the cross-attention, and
+    the decoder's causal self-attention stays plain, as in JAX; elsewhere
+    everything is plain."""
+    if torch.device(device).type == "cuda":
+        return {
+            "attn_impl": "xla",
+            "attn_impl_encoder": "splash",
+            "attn_impl_cross": "splash",
+        }
+    return {"attn_impl": "xla"}
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = False, sm_scale: float = 1.0,
+              impl: str = "xla") -> torch.Tensor:
+    if impl == "xla":
+        return xla_mha(q, k, v, causal=causal, sm_scale=sm_scale)
+    if impl == "splash":
+        return splash_mha(q, k, v, causal=causal, sm_scale=sm_scale)
+    if impl in ("flash", "flash_fwd"):
+        raise NotImplementedError(
+            f"attn_impl {impl!r} is not ported yet (ROADMAP queue 2, item 3)"
+        )
+    raise ValueError(f"Unknown attention impl: {impl}")

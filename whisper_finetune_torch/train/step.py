@@ -1,0 +1,168 @@
+"""The training step, the port of ``whisper_finetune_tpu/train/step.py``.
+
+One optimizer step = ``accum`` microbatches, each contributing the
+label-smoothed cross entropy (``-100`` ignored), gradients summed in the
+accumulator dtype (bf16 on the main path), then ONE fused update: the mean
+divisor and the global-norm clip factor ride into the 8-bit AdamW kernels as
+a single float32 scalar (``reduce_sums``), so no mean/clip pass over the
+gradient tree exists.
+
+This slice ports the single-device, non-split path with a
+``fused_apply`` optimizer. Frozen partitions (LoRA, train_only_*), the split
+update, the manual backward, ZeRO-1, gradient histograms and data
+parallelism come later (ROADMAP queue 1, items 8, 12 and 13).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional
+
+import torch
+
+from whisper_finetune_torch._device import resolve_device
+from whisper_finetune_torch.models.dims import ModelDimensions
+from whisper_finetune_torch.models.whisper import ForwardConfig, Whisper, forward_impl
+from whisper_finetune_torch.optim.quantized import Adam8bitState, AdamW8bit
+
+IGNORE_INDEX = -100
+
+
+class TrainState(NamedTuple):
+    model: Whisper  # the parameters, updated in place by the step
+    opt_state: Adam8bitState
+    step: int
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+class _CrossEntropy(torch.autograd.Function):
+    """Reduction-form smoothed CE: ``-logp[target] = lse - logit[target]``
+    and ``mean(-logp) = lse - mean(logits)``, so the forward needs three row
+    reductions and never builds the log-softmax. Saves the logits (already
+    live) and the (B, T) log-sum-exp; the backward rebuilds the softmax in one
+    pass and subtracts the target term with a scatter, so no (B, T, V)
+    one-hot exists."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, label_smoothing: float):
+        mask = targets != IGNORE_INDEX
+        safe = torch.where(mask, targets, 0).long()
+        l32 = logits.float()
+        m = l32.amax(dim=-1)
+        lse = m + torch.log(torch.sum(torch.exp(l32 - m[..., None]), dim=-1))
+        l_t = torch.gather(l32, -1, safe[..., None])[..., 0]
+        nll = lse - l_t
+        if label_smoothing > 0.0:
+            smooth = lse - l32.mean(dim=-1)
+            per_tok = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+        else:
+            per_tok = nll
+        per_tok = torch.where(mask, per_tok, 0.0)
+        count = torch.clamp(mask.sum(), min=1).float()
+        ctx.save_for_backward(logits, safe, mask, lse, count)
+        ctx.label_smoothing = label_smoothing
+        return per_tok.sum() / count
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, safe, mask, lse, count = ctx.saved_tensors
+        ls = ctx.label_smoothing
+        coeff = (g * mask.float() / count)[..., None]
+        dl = torch.exp(logits.float() - lse[..., None])
+        dl.sub_(ls / logits.shape[-1]).mul_(coeff)
+        dl.scatter_add_(-1, safe[..., None], -(1.0 - ls) * coeff)
+        return dl.to(logits.dtype), None, None
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       label_smoothing: float = 0.0) -> torch.Tensor:
+    """Label-smoothed cross entropy with ``-100`` ignore positions, mean over
+    the kept tokens (``F.cross_entropy(..., label_smoothing=s,
+    ignore_index=-100)`` semantics)."""
+    return _CrossEntropy.apply(logits, targets, label_smoothing)
+
+
+# ---------------------------------------------------------------------------
+# Train step factory
+# ---------------------------------------------------------------------------
+
+def make_train_step(
+    dims: ModelDimensions,
+    fcfg: ForwardConfig,
+    tx: AdamW8bit,
+    label_smoothing: float = 0.0,
+    feat_cfg=None,
+    max_grad_norm: Optional[float] = None,
+    accum_dtype: Optional[str] = None,
+    device="cuda",
+) -> Callable[..., tuple]:
+    """Build ``step(state, batch, generator=None) -> (state, loss)``.
+
+    Batch tensors are shaped ``(accum, B, ...)`` on ``device``: ``audio`` +
+    ``crop_frames`` with ``feat_cfg`` (log-mel and SpecAugment run inside the
+    step, their draws from ``generator``), else ``mel``; plus ``dec_input``
+    and ``dec_output``. The parameters and optimizer buffers update in place;
+    the returned loss is a 0-dim float32 tensor (reading it syncs)."""
+    resolve_device(device)
+    fcfg.check_supported()
+    if not hasattr(tx, "fused_apply"):
+        raise NotImplementedError(
+            "only optimizers with fused_apply are ported (ROADMAP queue 1, item 7)"
+        )
+    acc_dt = getattr(torch, accum_dtype) if accum_dtype else None
+    data_keys = (("audio", "crop_frames", "dec_input", "dec_output")
+                 if feat_cfg is not None else ("mel", "dec_input", "dec_output"))
+
+    def loss_fn(params, mb: Dict[str, torch.Tensor], generator):
+        if feat_cfg is not None:
+            from whisper_finetune_torch.ops.spec_augment import featurize_impl
+
+            mel = featurize_impl(mb["audio"], mb["crop_frames"], generator,
+                                 feat_cfg, train=True)
+        else:
+            mel = mb["mel"]
+        logits = forward_impl(params, mel, mb["dec_input"], dims, fcfg, train=True)
+        return cross_entropy_loss(logits, mb["dec_output"], label_smoothing)
+
+    def accumulate(params, leaves, batch, generator):
+        """Per-microbatch backward; gradient sums in the accumulator dtype
+        (each microbatch's gradients are float32 before the cast)."""
+        accum = batch[data_keys[0]].shape[0]
+        grad_sum = None
+        loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for i in range(accum):
+            loss = loss_fn(params, {k: batch[k][i] for k in data_keys}, generator)
+            grads = list(torch.autograd.grad(loss, leaves))
+            for j, g in enumerate(grads):
+                grads[j] = g.to(acc_dt) if acc_dt else g  # frees the fp32 copy
+            if grad_sum is None:
+                grad_sum = grads
+            else:
+                for a, g in zip(grad_sum, grads):
+                    a.add_(g)
+            loss_sum = loss_sum + loss.detach()
+        return grad_sum, accum, loss_sum / accum
+
+    def reduce_sums(grad_sum, accum: int):
+        """The float32 scalar that turns the sums into clipped means."""
+        dev = grad_sum[0].device
+        scale = torch.tensor(1.0 / accum, dtype=torch.float32, device=dev)
+        if max_grad_norm is None:
+            return scale
+        sq = sum(torch.sum(torch.square(g.float())) for g in grad_sum)
+        gnorm = torch.sqrt(sq) * scale
+        limit = torch.tensor(max_grad_norm, dtype=torch.float32, device=dev)
+        clip = torch.clamp(limit / (gnorm + 1e-6), max=1.0)
+        return scale * clip
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None):
+        leaves = [p for _, p in state.model.leaves()]
+        grad_sum, accum, loss = accumulate(state.model.params(), leaves, batch, generator)
+        g_scale = reduce_sums(grad_sum, accum)
+        opt_state = tx.fused_apply(grad_sum, state.opt_state, leaves, g_scale=g_scale)
+        return TrainState(state.model, opt_state, state.step + 1), loss
+
+    return step
