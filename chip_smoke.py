@@ -10,23 +10,42 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    started together) with its seconds.
 2. Kernels against their plain PyTorch twins on the card, bf16 in, float32
    math in the twin, at the main path's shapes: attention forward and both
-   backward kernels at (2, 20, 1500x1500) and (2, 20, 448x1500) plus ragged
-   and causal shapes; the fused 8-bit AdamW on (NB, 256) leaves with NB
+   backward kernels at (2, 20, 1500x1500), (2, 20, 448x1500) and causal
+   (2, 20, 448x448) plus ragged and small causal shapes, and the forward
+   instance that writes no log-sum-exp at the three main-path shapes; the fused 8-bit AdamW on (NB, 256) leaves with NB
    divisible and not divisible by 128, three steps. Then each kernel's time
    at the main path's shapes (CUDA events, median of repeats), its plain
    twin's time, the PyTorch library call's time where one exists, and the
    bound (the larger of bytes over 3.35 TB/s and operations over
-   989 TFLOP/s bf16, from the shapes); the two backward kernels also
-   together, against the bound of splash's fused backward.
-3. The main path: full large-v3 (1.55 B parameters, random weights from a
-   seed), batch 8 of synthetic 30 s audio, on-device log-mel + SpecAugment,
-   full remat, bf16 compute, bf16 gradient accumulator, label smoothing
-   0.1, clip 1.0, fused 8-bit AdamW(2e-5, wd 0.01), through
+   989 TFLOP/s bf16, from the shapes; under a causal mask only the unmasked
+   64 x 64 tiles' work counts); the two backward kernels also together,
+   against the bound of splash's fused backward; and the decoder's causal
+   self-attention forward + backward through the kernels against the plain
+   path (``xla_mha``) at (8, 20, 448x448).
+3. The first slice's path: full large-v3 (1.55 B parameters, random weights
+   from a seed), batch 8 of synthetic 30 s audio, on-device log-mel +
+   SpecAugment, full remat, bf16 compute, bf16 gradient accumulator, label
+   smoothing 0.1, clip 1.0, fused 8-bit AdamW(2e-5, wd 0.01), through
    ``make_train_step``: 2 warm-up and 5 timed steps. Every launch counter is
    set to 0 just before and read just after; each kernel must have launched
    exactly its expected count. Then the fused AdamW against its twin on
    copies of the model's own ``tok_emb`` and a (32, 1280, 5120) leaf with
    their 8-bit state, and its time over all quantized leaves.
+4. The Muon flagship, built from ``configs/config_large_v3_best_muon.yaml``
+   through ``config.load_config`` / ``build_forward_config`` /
+   ``build_featurize_config`` / ``get_schedule`` / ``get_optimizer`` /
+   ``make_train_step``, three legs, counters zeroed before each and read
+   after it:
+   - ``flash``: ``attn_impl: flash`` at all three attention sites, full
+     large-v3, microbatch 8, accumulation 8, 1 warm-up + 3 timed optimizer
+     steps; launches must equal the blocks the forward ran (stochastic depth
+     drops layers), the schedule's lr is checked at each count;
+   - ``flash_fwd``: ``attn_impl: flash_fwd`` at full width and 4 + 4 layers,
+     stochastic depth 0, int8 Muon momentum and 8-bit auxiliary AdamW,
+     accumulation 2, 2 steps: 96 forward launches (the instance that writes
+     no log-sum-exp), no backward kernel launch;
+   - ``auto``: the config as shipped (splash at the encoder and cross sites,
+     plain decoder self-attention) at 4 + 4 layers, 2 steps.
 
 ``--profile`` adds a ``torch.profiler`` window of two main-path steps: device
 time by kernel and group, and the device's busy share of the wall time.
@@ -143,8 +162,9 @@ def check_attention(gen) -> dict:
 
     scale = 64 ** -0.5
     worst = {"attn_fwd": 0.0, "attn_bwd_dq": 0.0, "attn_bwd_dkdv": 0.0}
-    for B, H, Tq, Tk, causal in ((2, 20, 1500, 1500, False), (2, 20, 448, 1500, False),
-                                 (1, 3, 77, 131, False), (1, 3, 77, 77, True),
+    main_shapes = ((2, 20, 1500, 1500, False), (2, 20, 448, 1500, False),
+                   (2, 20, 448, 448, True))
+    for B, H, Tq, Tk, causal in (*main_shapes, (1, 3, 77, 131, False), (1, 3, 77, 77, True),
                                  (1, 2, 200, 200, True)):
         q, k, v = _qkv(B, H, Tq, Tk, gen)
         do = torch.randn((B, H, Tq, 64), generator=gen, device="cuda").to(torch.bfloat16)
@@ -175,6 +195,20 @@ def check_attention(gen) -> dict:
                       "dk": "attn_bwd_dkdv", "dv": "attn_bwd_dkdv"}[name]
             worst[kernel] = max(worst[kernel], err)
         log(f"  attention {B}x{H}x{Tq}x{Tk} causal={int(causal)}: " + ", ".join(rows))
+    # The forward instance that writes no log-sum-exp against its own twin.
+    worst["attn_fwd_nolse"] = 0.0
+    for B, H, Tq, Tk, causal in main_shapes:
+        q, k, v = _qkv(B, H, Tq, Tk, gen)
+        o, lse = A.attn_fwd(q, k, v, causal, scale, with_lse=False)
+        torch.cuda.synchronize()
+        ref = A.attn_fwd_nolse_plain(q.float(), k.float(), v.float(), causal, scale)
+        err, peak = (o.float() - ref).abs().max().item(), ref.abs().max().item()
+        if lse is not None or not err <= ATTN_TOL_O * peak:
+            raise AssertionError(f"no-lse forward {B}x{H}x{Tq}x{Tk} causal={causal}: "
+                                 f"max abs err {err} > {ATTN_TOL_O * peak}")
+        worst["attn_fwd_nolse"] = max(worst["attn_fwd_nolse"], err)
+        log(f"  no-lse forward {B}x{H}x{Tq}x{Tk} causal={int(causal)}: o {err:.3e}/"
+            f"{ATTN_TOL_O * peak:.3e}")
     return worst
 
 
@@ -255,7 +289,16 @@ def check_adamw8_leaves(model, opt_state, gen, out: dict) -> dict:
     return out
 
 
-def time_attention(gen, site: str, B, H, Tq, Tk) -> dict:
+def _unmasked_pairs(Tq: int, Tk: int, causal: bool, tile: int = 64) -> int:
+    """(query, key) pairs in the 64 x 64 tiles a kernel cannot skip: all of
+    them without a mask; under a causal mask the tiles at or below the
+    diagonal (the kernels skip the rest)."""
+    if not causal:
+        return Tq * Tk
+    return sum(min(tile, Tq - q0) * min(Tk, q0 + tile) for q0 in range(0, Tq, tile))
+
+
+def time_attention(gen, site: str, B, H, Tq, Tk, causal: bool = False) -> dict:
     import torch
     import torch.nn.functional as F
     from whisper_finetune_torch.ops import attention as A
@@ -263,51 +306,84 @@ def time_attention(gen, site: str, B, H, Tq, Tk) -> dict:
     scale = 64 ** -0.5
     q, k, v = _qkv(B, H, Tq, Tk, gen)
     do = _qkv(B, H, Tq, Tq, gen)[0]  # the gradient of o, in o's layout
-    o, lse = A.attn_fwd(q, k, v, False, scale)
-    dq, delta = A.attn_bwd_dq(q, k, v, o, do, lse, False, scale)
+    o, lse = A.attn_fwd(q, k, v, causal, scale)
+    dq, delta = A.attn_bwd_dq(q, k, v, o, do, lse, causal, scale)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    o_r, lse_r = A.attn_fwd_plain(qf, kf, vf, False, scale)
-    _, delta_r = A.attn_bwd_dq_plain(qf, kf, vf, o_r, dof, lse_r, False, scale)
+    o_r, lse_r = A.attn_fwd_plain(qf, kf, vf, causal, scale)
+    _, delta_r = A.attn_bwd_dq_plain(qf, kf, vf, o_r, dof, lse_r, causal, scale)
 
-    bhtd = B * H * Tq * Tk * 64
+    def sdpa(*args):
+        return F.scaled_dot_product_attention(*args, scale=scale, is_causal=causal)
+
+    bhtd = B * H * _unmasked_pairs(Tq, Tk, causal) * 64
     row_q, row_k = B * H * Tq * 64 * 2, B * H * Tk * 64 * 2  # bf16 bytes
     vec = B * H * Tq * 4
     rec = {}
     kernels = {
-        "attn_fwd": (lambda: A.attn_fwd(q, k, v, False, scale),
-                     lambda: A.attn_fwd_plain(qf, kf, vf, False, scale),
-                     lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+        "attn_fwd": (lambda: A.attn_fwd(q, k, v, causal, scale),
+                     lambda: A.attn_fwd_plain(qf, kf, vf, causal, scale),
+                     lambda: sdpa(q, k, v),
                      row_q + 2 * row_k + row_q + vec, 4 * bhtd),
-        "attn_bwd_dq": (lambda: A.attn_bwd_dq(q, k, v, o, do, lse, False, scale),
-                        lambda: A.attn_bwd_dq_plain(qf, kf, vf, o_r, dof, lse_r, False, scale),
+        "attn_bwd_dq": (lambda: A.attn_bwd_dq(q, k, v, o, do, lse, causal, scale),
+                        lambda: A.attn_bwd_dq_plain(qf, kf, vf, o_r, dof, lse_r, causal, scale),
                         None, 3 * row_q + 2 * row_k + vec + row_q + vec, 6 * bhtd),
-        "attn_bwd_dkdv": (lambda: A.attn_bwd_dkdv(q, k, v, do, lse, delta, False, scale),
-                          lambda: A.attn_bwd_dkdv_plain(qf, kf, vf, dof, lse_r, delta_r, False, scale),
+        "attn_bwd_dkdv": (lambda: A.attn_bwd_dkdv(q, k, v, do, lse, delta, causal, scale),
+                          lambda: A.attn_bwd_dkdv_plain(qf, kf, vf, dof, lse_r, delta_r, causal, scale),
                           None, 2 * row_q + 2 * row_k + 2 * vec + 2 * row_k, 8 * bhtd),
     }
     for name, (kern, plain, lib, n_bytes, flops) in kernels.items():
         ms = cuda_time_ms(kern)
         b_ms, b_by = bound_ms(n_bytes, flops)
         rec[name] = {
-            "site": site, "shape": [B, H, Tq, Tk, 64], "ms": ms,
+            "site": site, "shape": [B, H, Tq, Tk, 64], "causal": causal, "ms": ms,
             "plain_ms": cuda_time_ms(plain, iters=3),
             "library_ms": cuda_time_ms(lib) if lib is not None else None,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "flops": flops,
             "tflops": flops / ms / 1e9,
         }
+    # The forward instance without the log-sum-exp write (the flash_fwd
+    # route) against its own twin; same operations, (B, H, Tq) floats fewer.
+    rec["attn_fwd"]["nolse_ms"] = cuda_time_ms(
+        lambda: A.attn_fwd(q, k, v, causal, scale, with_lse=False))
+    rec["attn_fwd"]["nolse_plain_ms"] = cuda_time_ms(
+        lambda: A.attn_fwd_nolse_plain(qf, kf, vf, causal, scale), iters=3)
     # The two backward kernels together against the bound of the function
     # splash's fused backward computes: dq, dk, dv with S = QK^T, dP = dO V^T,
     # dV, dQ, dK once each (10 BHTD); the split design redoes S and dP (14).
     # The library's fused backward (one call) is the yardstick.
     b_ms, b_by = bound_ms(3 * row_q + 2 * row_k + vec + row_q + 2 * row_k, 10 * bhtd)
     qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
+    out = sdpa(qr, kr, vr)
     rec["bwd"] = {
         "ms": rec["attn_bwd_dq"]["ms"] + rec["attn_bwd_dkdv"]["ms"],
         "bound_ms": b_ms, "bound_by": b_by, "flops": 10 * bhtd,
         "library_ms": cuda_time_ms(
             lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True)),
     }
+    return rec
+
+
+def time_decoder_self(gen) -> dict:
+    """The decoder's causal self-attention, forward + backward through
+    autograd, at the main path's (8, 20, 448, 448): the kernel route
+    (``flash_mha``) against the plain path ``attn_impl: auto`` keeps at this
+    site (``xla_mha``), and the forward alone."""
+    import torch
+    from whisper_finetune_torch.ops import attention as A
+
+    scale = 64 ** -0.5
+    q, k, v = (x.detach().requires_grad_() for x in _qkv(8, 20, 448, 448, gen))
+    do = _qkv(8, 20, 448, 448, gen)[0]
+    rec = {"shape": [8, 20, 448, 448, 64]}
+    for name, fn in (("kernels", A.flash_mha), ("plain", A.xla_mha)):
+        def fwd_bwd(fn=fn):
+            torch.autograd.grad(fn(q, k, v, causal=True, sm_scale=scale), (q, k, v), do)
+
+        def fwd(fn=fn):
+            with torch.no_grad():
+                fn(q, k, v, causal=True, sm_scale=scale)
+
+        rec[name] = {"fwd_bwd_ms": cuda_time_ms(fwd_bwd), "fwd_ms": cuda_time_ms(fwd)}
     return rec
 
 
@@ -356,9 +432,7 @@ def main_path() -> dict:
     import numpy as np
     import torch
     from whisper_finetune_torch.models import ForwardConfig, get_preset_dims, init_params
-    from whisper_finetune_torch.ops import attention as A
     from whisper_finetune_torch.ops.attention import resolve_auto_impls
-    from whisper_finetune_torch.ops.fused_adamw8 import fused_adamw8_leaf
     from whisper_finetune_torch.ops.spec_augment import FeaturizeConfig
     from whisper_finetune_torch.optim import adamw_8bit
     from whisper_finetune_torch.optim.quantized import BLOCK, QMoment
@@ -391,9 +465,7 @@ def main_path() -> dict:
     log(f"  large-v3: {n_params} parameters in {len(leaves)} leaves, {fused_leaves} "
         f"through the fused kernel")
 
-    kernels = (*A.KERNELS, fused_adamw8_leaf)
-    for fn in kernels:
-        fn.launches = 0
+    kernels = _reset_counts()
     losses, times = [], []
     for i in range(WARMUP_STEPS + TIMED_STEPS):
         if i == WARMUP_STEPS:
@@ -447,6 +519,172 @@ def main_path() -> dict:
         f"(bench.py accounting, 4x forward)")
     log(f"  launches {launches}")
     return rec, state, step, batch, gen
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the Muon flagship under attn_impl flash / flash_fwd / auto
+# ---------------------------------------------------------------------------
+
+FLAGSHIP_CONFIG = ROOT / "configs" / "config_large_v3_best_muon.yaml"
+TRAIN_STEPS = 1000  # the cosine schedule's horizon (the runs stay in its warm-up)
+
+
+def _reset_counts() -> tuple:
+    from whisper_finetune_torch.models import whisper as W
+    from whisper_finetune_torch.ops import attention as A
+    from whisper_finetune_torch.ops.fused_adamw8 import fused_adamw8_leaf
+
+    kernels = (*A.KERNELS, fused_adamw8_leaf)
+    for fn in kernels:
+        fn.launches = 0
+    W.encoder_forward.blocks_run = W.decoder_forward.blocks_run = 0
+    return kernels
+
+
+def flagship_leg(name: str, attn_impl: str, layers, accum, steps: int, warmup: int,
+                 stochastic_depth=None, optimizer_extra=None) -> dict:
+    """One leg of the flagship: the shipped config with ``training.attn_impl``
+    overridden (``layers``, ``accum``, ``stochastic_depth`` and
+    ``optimizer_extra`` cut or vary a leg as its caller says), random weights
+    from seed 0, microbatch 8 of synthetic 30 s audio, bf16 accumulator."""
+    import numpy as np
+    import torch
+    from whisper_finetune_torch import config as C
+    from whisper_finetune_torch.models import get_preset_dims, init_params
+    from whisper_finetune_torch.models import whisper as W
+    from whisper_finetune_torch.optim import get_optimizer, get_schedule
+    from whisper_finetune_torch.optim.quantized import BLOCK, QMoment
+    from whisper_finetune_torch.train import TrainState, make_train_step
+
+    cfg = C.load_config(FLAGSHIP_CONFIG)
+    cfg["training"]["attn_impl"] = attn_impl
+    if stochastic_depth is not None:
+        cfg["training"]["stochastic_depth"] = stochastic_depth
+    if accum is not None:
+        cfg["training"]["accum_grad_steps"] = accum
+    cfg["optimizer"].update(optimizer_extra or {})
+    accum = int(cfg["training"]["accum_grad_steps"])
+    dims = get_preset_dims(cfg["model"]["init_name"])
+    if layers is not None:
+        dims = dims.replace(n_audio_layer=layers[0], n_text_layer=layers[1])
+    B = 8
+
+    model = init_params(dims, device="cuda", seed=0)
+    leaves = [p for _, p in model.leaves()]
+    fcfg = C.build_forward_config(cfg, is_lora_run=False, device="cuda")
+    feat = C.build_featurize_config(cfg, dims.n_mels)
+    schedule = get_schedule(cfg["lr_scheduler"], TRAIN_STEPS)
+    tx, meta = get_optimizer(model.leaves(), cfg["optimizer"], schedule)
+    state = TrainState(model, tx.init(leaves), 0)
+    step = make_train_step(dims, fcfg, tx, float(cfg["training"]["label_smoothing"]),
+                           feat_cfg=feat, max_grad_norm=cfg["training"]["max_grad_norm"],
+                           accum_dtype="bfloat16", device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {
+        "audio": torch.from_numpy((rng.standard_normal((accum, B, 480000)) * 0.05).astype(np.float32)),
+        "crop_frames": torch.full((accum, B), 3000, dtype=torch.int32),
+        "dec_input": torch.from_numpy(rng.integers(0, dims.n_vocab, (accum, B, 448)).astype(np.int64)),
+        "dec_output": torch.from_numpy(rng.integers(0, dims.n_vocab, (accum, B, 448)).astype(np.int64)),
+    }
+    batch = {k: v.cuda() for k, v in batch.items()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    before = [p.detach()[(0,) * (p.dim() - 1)][:8].clone() for p in leaves]
+    # auxiliary leaves the fused 8-bit AdamW kernel serves (none with float32 moments)
+    aux_fused = sum(isinstance(mu, QMoment) and p.numel() % BLOCK == 0
+                    for p, mu in zip(tx._pick("adamw", leaves), state.opt_state.adamw.mu))
+    log(f"  [{name}] attn {fcfg.enc_attn}/{fcfg.dec_attn}/{fcfg.cross_attn}, "
+        f"{dims.n_audio_layer}+{dims.n_text_layer} layers, accum {accum}, stochastic depth "
+        f"{fcfg.sd_encoder}, deep SpecAugment {fcfg.dsa_apply}, {tx.labels.count('muon')} Muon + "
+        f"{tx.labels.count('adamw')} AdamW leaves ({aux_fused} through fused_adamw8)")
+
+    kernels = _reset_counts()
+    losses, times, lrs = [], [], []
+    n_steps = warmup + steps
+    for i in range(n_steps):
+        if i == warmup:
+            torch.cuda.reset_peak_memory_stats()
+        lrs.append((tx.muon.lr(state.opt_state.count), tx.adamw.lr(state.opt_state.count)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch, gen)
+        loss = float(loss)  # syncs
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses.append(loss)
+        if i >= warmup:
+            times.append(dt)
+        log(f"  [{name}] step {i}: loss {loss:.4f}, {dt * 1e3:.1f} ms, lr {lrs[-1][0]:.3e}")
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    enc_blocks, dec_blocks = W.encoder_forward.blocks_run, W.decoder_forward.blocks_run
+    peak = torch.cuda.max_memory_allocated()
+
+    # Attention sites the forwards ran through the kernels, by route.
+    kernel_routes = ("splash", "flash", "flash_fwd")
+    sites = (enc_blocks * (fcfg.enc_attn in kernel_routes)
+             + dec_blocks * ((fcfg.dec_attn in kernel_routes) + (fcfg.cross_attn in kernel_routes)))
+    bwd_sites = (enc_blocks * (fcfg.enc_attn in ("splash", "flash"))
+                 + dec_blocks * ((fcfg.dec_attn in ("splash", "flash"))
+                                 + (fcfg.cross_attn in ("splash", "flash"))))
+    expect = {"attn_fwd": 2 * sites,  # forward + remat recompute of every kept block
+              "attn_bwd_dq": bwd_sites, "attn_bwd_dkdv": bwd_sites,
+              "fused_adamw8_leaf": aux_fused * n_steps}
+    if launches != expect:
+        raise AssertionError(f"[{name}] launch counts {launches} != expected {expect} "
+                             f"(blocks run: encoder {enc_blocks}, decoder {dec_blocks})")
+    total_blocks = n_steps * accum * (dims.n_audio_layer + dims.n_text_layer)
+    if fcfg.sd_encoder == 0.0 and enc_blocks + dec_blocks != total_blocks:
+        raise AssertionError(f"[{name}] {enc_blocks + dec_blocks} blocks run, {total_blocks} expected")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[{name}] non-finite loss {losses}")
+    if abs(losses[0] - math.log(dims.n_vocab)) > 0.5:
+        raise AssertionError(f"[{name}] first loss {losses[0]} far from ln(V)")
+    changed = sum(not torch.equal(b, p.detach()[(0,) * (p.dim() - 1)][:8])
+                  for b, p in zip(before, leaves))
+    if changed != len(leaves):
+        raise AssertionError(f"[{name}] only {changed} of {len(leaves)} leaves changed")
+    if state.step != n_steps or state.opt_state.count != n_steps:
+        raise AssertionError(f"[{name}] step {state.step}, count {state.opt_state.count}")
+    # Cosine schedule inside its 64-step warm-up: lr = base * count / 64,
+    # from the optimizer's own count, for Muon and the auxiliary AdamW.
+    warm = float(cfg["lr_scheduler"]["warmup_steps"])
+    for c, (lr_m, lr_a) in enumerate(lrs):
+        want_m = float(cfg["optimizer"]["muon_params"]["lr"]) * c / warm
+        want_a = float(cfg["optimizer"]["params"]["lr"]) * c / warm
+        if abs(lr_m - want_m) > 1e-6 * max(want_m, 1e-12) or abs(lr_a - want_a) > 1e-6 * max(want_a, 1e-12):
+            raise AssertionError(f"[{name}] lr at count {c}: {lr_m}, {lr_a} != {want_m}, {want_a}")
+
+    # The optimizer's one-pass update alone (Muon's Newton-Schulz and the
+    # auxiliary AdamW over every leaf), on fresh bf16 gradient sums.
+    grads = [(torch.randn(p.shape, generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+             for p in leaves]
+    g_scale = torch.tensor(1.0 / accum, device="cuda")
+    update_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tx.fused_apply(grads, state.opt_state, leaves, g_scale=g_scale)
+        torch.cuda.synchronize()
+        update_times.append(time.perf_counter() - t0)
+    del grads
+
+    step_s = statistics.median(times)
+    rec = {
+        "leg": name, "update_s_median": statistics.median(update_times), "attn_impl": attn_impl, "layers": [dims.n_audio_layer, dims.n_text_layer],
+        "microbatch": B, "accum": accum, "steps_timed": steps, "warmup_steps": warmup,
+        "step_s_median": step_s, "step_s_max": max(times), "step_s_all": times,
+        "losses": losses, "lr": lrs, "audio_hours_per_s": accum * B * 30 / 3600 / step_s,
+        "peak_mem_bytes": peak, "launches": launches,
+        "blocks_run": {"encoder": enc_blocks, "decoder": dec_blocks},
+        "blocks_possible": total_blocks, "lr_metadata": meta,
+    }
+    log(f"  [{name}] median step {step_s * 1e3:.1f} ms (max {max(times) * 1e3:.1f}), "
+        f"{rec['audio_hours_per_s']:.4f} audio-h/s, peak {peak / 2**30:.2f} GiB, blocks run "
+        f"{enc_blocks}+{dec_blocks} of {total_blocks}, optimizer update alone "
+        f"{rec['update_s_median'] * 1e3:.1f} ms, launches {launches}")
+    del state, step, model, leaves, batch, before, tx
+    torch.cuda.empty_cache()
+    return rec
 
 
 def profile_steps(step, state, batch, gen, n_steps: int = 2) -> dict:
@@ -523,7 +761,10 @@ def main() -> int:
     log("timing at main-path shapes:")
     enc = time_attention(gen, "encoder self-attention", 8, 20, 1500, 1500)
     cross = time_attention(gen, "cross-attention", 8, 20, 448, 1500)
-    for site in (enc, cross):
+    dec_self = time_attention(gen, "decoder self-attention (causal)", 8, 20, 448, 448,
+                              causal=True)
+    dec_route = time_decoder_self(gen)
+    for site in (enc, cross, dec_self):
         for name in A_NAMES:
             r = site[name]
             log(f"  {name} [{r['site']}]: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
@@ -533,6 +774,11 @@ def main() -> int:
         log(f"  backward dq+dkdv [{site[A_NAMES[0]]['site']}]: {bwd['ms']:.3f} ms (fused "
             f"bound {bwd['bound_ms']:.3f} by {bwd['bound_by']}, library "
             f"{bwd['library_ms']:.3f})")
+        log(f"  attn_fwd without lse [{site[A_NAMES[0]]['site']}]: "
+            f"{site['attn_fwd']['nolse_ms']:.3f} ms (plain {site['attn_fwd']['nolse_plain_ms']:.3f})")
+    log(f"  decoder self-attention 8x20x448x448 causal, forward+backward: kernels "
+        f"{dec_route['kernels']['fwd_bwd_ms']:.3f} ms, plain path {dec_route['plain']['fwd_bwd_ms']:.3f} ms; "
+        f"forward alone {dec_route['kernels']['fwd_ms']:.3f} / {dec_route['plain']['fwd_ms']:.3f} ms")
 
     log("main path:")
     main_rec, state, step, batch, step_gen = main_path()
@@ -545,36 +791,79 @@ def main() -> int:
         f"{adam_t['ms']:.3f} ms (plain {adam_t['plain_ms']:.3f}, bound "
         f"{adam_t['bound_ms']:.3f}, {adam_t['gbps']:.0f} GB/s)")
 
-    per_step = main_rec["launches_per_step"]
-    sources = {
-        "attn_fwd": "whisper_finetune_tpu/ops/attention.py:236 (splash_mha forward)",
-        "attn_bwd_dq": "whisper_finetune_tpu/ops/attention.py:236 (splash_mha fused_bwd, dq)",
-        "attn_bwd_dkdv": "whisper_finetune_tpu/ops/attention.py:236 (splash_mha fused_bwd, dk/dv)",
+    # The first slice's model and state go before the flagship legs, so that
+    # each leg's peak memory is its own.
+    del state, step, batch, step_gen
+    torch.cuda.empty_cache()
+    log("Muon flagship (configs/config_large_v3_best_muon.yaml):")
+    legs = {
+        "flash": flagship_leg("flash", "flash", None, None, steps=3, warmup=1),
+        "flash_fwd": flagship_leg(
+            "flash_fwd", "flash_fwd", (4, 4), 2, steps=2, warmup=0, stochastic_depth=0.0,
+            optimizer_extra={"8bit": True, "muon_momentum_dtype": "int8", "muon_aux_8bit": True}),
+        "auto": flagship_leg("auto", "auto", (4, 4), None, steps=2, warmup=0),
     }
+    if legs["flash_fwd"]["launches"]["attn_fwd"] != 96:
+        raise AssertionError(f"flash_fwd leg: {legs['flash_fwd']['launches']} (96 forwards expected)")
+    if legs["flash"]["launches"]["fused_adamw8_leaf"] != 0:
+        raise AssertionError("flash leg launched the 8-bit AdamW kernel")
+    if not legs["flash_fwd"]["launches"]["fused_adamw8_leaf"] > 0:
+        raise AssertionError("flash_fwd leg: the 8-bit auxiliary AdamW launched no kernel")
+    for leg in legs.values():
+        print(json.dumps({"leg": leg["leg"], "step_ms_median": leg["step_s_median"] * 1e3,
+                          "step_ms_max": leg["step_s_max"] * 1e3,
+                          "audio_hours_per_s": leg["audio_hours_per_s"],
+                          "peak_gib": leg["peak_mem_bytes"] / 2**30,
+                          "optimizer_update_ms": leg["update_s_median"] * 1e3,
+                          "launches": leg["launches"], "blocks_run": leg["blocks_run"]}),
+              flush=True)
+
+    per_step = main_rec["launches_per_step"]
+    by_leg = {"splash_adamw8": main_rec["launches"], **{k: v["launches"] for k, v in legs.items()}}
+    tpu = "whisper_finetune_tpu/ops/attention.py"
+    sources = {
+        "attn_fwd": f"{tpu}:236 (splash_mha forward); {tpu}:53 (flash_mha forward); "
+                    f"{tpu}:290 (flash_fwd_xla_bwd: the forward without residuals)",
+        "attn_bwd_dq": f"{tpu}:236 (splash_mha fused_bwd, dq); {tpu}:53 (flash_mha dQ kernel)",
+        "attn_bwd_dkdv": f"{tpu}:236 (splash_mha fused_bwd, dk/dv); {tpu}:53 (flash_mha dK/dV kernel)",
+    }
+    routes = {"attn_fwd": ["splash", "flash", "flash_fwd"], "attn_bwd_dq": ["splash", "flash"],
+              "attn_bwd_dkdv": ["splash", "flash"]}
     kernels = []
     for name in A_NAMES:
         r = enc[name]
         entry = {
             "name": name, "route": "cuda",
             "source": "whisper_finetune_torch/csrc/attention.cu",
-            "replaces": sources[name], "launches": main_rec["launches"][name],
+            "replaces": sources[name], "attn_impls": routes[name],
+            "launches": sum(leg[name] for leg in by_leg.values()),
+            "launches_by_leg": {k: leg[name] for k, leg in by_leg.items()},
             "max_abs_err": attn_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "launches_per_step": per_step[name],
-            "shape": r["shape"], "cross": {k: cross[name][k] for k in
-                                           ("shape", "ms", "plain_ms", "library_ms", "bound_ms")},
+            "shape": r["shape"],
+            **{site: {k: rec[name][k] for k in ("shape", "causal", "ms", "plain_ms", "library_ms",
+                                                "bound_ms", "bound_by")}
+               for site, rec in (("cross", cross), ("decoder_self", dec_self))},
         }
+        if name == "attn_fwd":
+            entry["no_lse"] = {"max_abs_err": attn_err["attn_fwd_nolse"], **{
+                site: {"ms": rec[name]["nolse_ms"], "plain_ms": rec[name]["nolse_plain_ms"]}
+                for site, rec in (("encoder", enc), ("cross", cross), ("decoder_self", dec_self))}}
         if name != "attn_fwd":
             # dq and dk/dv together against the fused backward's bound
             entry["bwd_dq_plus_dkdv"] = {
                 site: {k: rec["bwd"][k] for k in ("ms", "bound_ms", "library_ms")}
-                for site, rec in (("encoder", enc), ("cross", cross))}
+                for site, rec in (("encoder", enc), ("cross", cross),
+                                  ("decoder_self", dec_self))}
         kernels.append(entry)
     kernels.append({
         "name": "fused_adamw8", "route": "cuda",
         "source": "whisper_finetune_torch/csrc/fused_adamw8.cu",
         "replaces": "whisper_finetune_tpu/ops/fused_adamw8.py:132 (fused_adamw8_leaf)",
-        "launches": main_rec["launches"]["fused_adamw8_leaf"], "max_abs_err": adam["p"],
+        "launches": sum(leg["fused_adamw8_leaf"] for leg in by_leg.values()),
+        "launches_by_leg": {k: leg["fused_adamw8_leaf"] for k, leg in by_leg.items()},
+        "max_abs_err": adam["p"],
         "ms": adam_t["ms"], "plain_ms": adam_t["plain_ms"], "bound_ms": adam_t["bound_ms"],
         "bound_by": adam_t["bound_by"], "library_ms": None,
         "launches_per_step": per_step["fused_adamw8_leaf"],
@@ -583,8 +872,9 @@ def main() -> int:
 
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": libs.build_seconds, "kernels": kernels, "attention_timing":
-              {"encoder": enc, "cross": cross}, "adamw8_timing": adam_t,
-              "adamw8_check": adam, "main_path": main_rec}
+              {"encoder": enc, "cross": cross, "decoder_self": dec_self,
+               "decoder_self_routes": dec_route}, "adamw8_timing": adam_t,
+              "adamw8_check": adam, "main_path": main_rec, "flagship_legs": legs}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -1,7 +1,9 @@
 """The port's attention against the JAX package's: the splash path (here the
 kernels' plain twins under the same ``autograd.Function``) against
 ``splash_mha`` in Pallas interpret mode and against ``xla_mha``, forward and
-gradients, valid rows only (splash pads to 128 and slices the padding off)."""
+gradients, valid rows only (splash pads to 128 and slices the padding off);
+the flash and flash_fwd routes against ``attention(impl=...)`` of JAX, which
+on the CPU runs ``flash_mha`` through ``xla_mha`` as its own tests do."""
 
 import jax
 import jax.numpy as jnp
@@ -9,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from whisper_finetune_tpu.ops.attention import attention as j_attention
 from whisper_finetune_tpu.ops.attention import splash_mha as j_splash
 from whisper_finetune_tpu.ops.attention import xla_mha as j_xla
 from whisper_finetune_torch.ops import attention as A
@@ -95,8 +98,9 @@ def test_dispatch_and_auto_impls():
     q, k, v = (_t(x) for x in _qkv(8, 8))
     torch.testing.assert_close(A.attention(q, k, v, impl="splash"),
                                A.attention(q, k, v, impl="xla"), atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        A.attention(q, k, v, impl="flash")
+    for impl in ("flash", "flash_fwd"):
+        torch.testing.assert_close(A.attention(q, k, v, impl=impl),
+                                   A.attention(q, k, v, impl="xla"), atol=1e-5, rtol=0)
     with pytest.raises(ValueError):
         A.attention(q, k, v, impl="nope")
     assert A.resolve_auto_impls("cpu") == {"attn_impl": "xla"}
@@ -110,3 +114,96 @@ def test_cpu_path_counts_no_launch():
     q, k, v = (_t(x, True) for x in _qkv(8, 8))
     A.splash_mha(q, k, v).sum().backward()
     assert [fn.launches for fn in A.KERNELS] == [0, 0, 0]
+
+
+# ragged (no multiple of 64 or 128), causal and not, square and cross shapes
+FLASH_CASES = [(48, 96, False), (77, 131, False), (24, 150, False), (64, 64, True),
+               (77, 77, True), (150, 150, False)]
+
+
+@pytest.mark.parametrize("impl", ["flash", "flash_fwd"])
+@pytest.mark.parametrize("Tq,Tk,causal", FLASH_CASES)
+def test_flash_routes_forward_match_jax(impl, Tq, Tk, causal):
+    q, k, v = _qkv(Tq, Tk, seed=6)
+    scale = q.shape[-1] ** -0.5
+    ref = np.asarray(j_attention(*map(jnp.asarray, (q, k, v)), causal=causal, sm_scale=scale,
+                                 impl=impl))
+    out = A.attention(_t(q), _t(k), _t(v), causal=causal, sm_scale=scale, impl=impl)
+    # float32 on both sides, scores scaled at another place: measured ~1e-6.
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["flash", "flash_fwd"])
+@pytest.mark.parametrize("Tq,Tk,causal", FLASH_CASES)
+def test_flash_routes_grads_match_jax(impl, Tq, Tk, causal):
+    q, k, v = _qkv(Tq, Tk, seed=7)
+    cot = np.random.default_rng(8).standard_normal((2, 2, Tq, 16)).astype(np.float32)
+    scale = q.shape[-1] ** -0.5
+    ref = jax.grad(lambda *a: jnp.sum(j_attention(*a, causal=causal, sm_scale=scale, impl=impl)
+                                      * cot), argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+    (A.attention(tq, tk, tv, causal=causal, sm_scale=scale, impl=impl) * _t(cot)).sum().backward()
+    # float32: the kernels' twins (flash) or autograd of xla_mha (flash_fwd)
+    # against JAX's VJP of xla_mha; sums in another order.
+    for got, want in zip((tq.grad, tk.grad, tv.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_bf16_mixes_two_scalings(causal):
+    """In bf16 the forward scales the float32 scores by D**-0.5 and the plain
+    backward scales q and k by D**-0.25 each in bf16 (not exact there), as
+    JAX does on a TPU. On the CPU JAX's forward is xla_mha too, so the
+    forward differs by that rounding: a few bf16 ulps of the output (1 ulp
+    = 2**-8 relative; limit 3e-2 absolute on O(1) values, as for xla_mha).
+    The backward is the same function on both sides: bf16 rounding only."""
+    q, k, v = _qkv(40, 40, seed=9)
+    cot = np.random.default_rng(10).standard_normal((2, 2, 40, 16)).astype(np.float32)
+    scale = q.shape[-1] ** -0.5
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    jcot = jnp.asarray(cot, jnp.bfloat16)
+    ref_o = j_attention(jq, jk, jv, causal=causal, sm_scale=scale, impl="flash_fwd")
+    ref_g = jax.grad(lambda *a: jnp.sum((j_attention(*a, causal=causal, sm_scale=scale,
+                                                     impl="flash_fwd") * jcot)
+                                        .astype(jnp.float32)), argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (_t(x).bfloat16().requires_grad_() for x in (q, k, v))
+    out = A.flash_fwd_xla_bwd(tq, tk, tv, causal=causal, sm_scale=scale)
+    assert out.dtype == torch.bfloat16
+    out.backward(_t(cot).bfloat16())
+    np.testing.assert_allclose(out.float().detach().numpy(),
+                               np.asarray(ref_o.astype(jnp.float32)), atol=3e-2, rtol=0)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), ref_g):
+        want = np.asarray(want.astype(jnp.float32))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   atol=2e-2 * np.abs(want).max(), rtol=0)
+
+
+@pytest.mark.parametrize("Tq,Tk,causal", [(33, 70, False), (50, 50, True)])
+def test_nolse_twin_is_the_forward_twin(Tq, Tk, causal):
+    q, k, v = (_t(x) for x in _qkv(Tq, Tk, seed=11))
+    o, lse = A.attn_fwd(q, k, v, causal, 0.3)
+    o2, none = A.attn_fwd(q, k, v, causal, 0.3, with_lse=False)
+    assert none is None and lse.shape == (2, 2, Tq)
+    torch.testing.assert_close(o2, o, atol=1e-6, rtol=0)
+    torch.testing.assert_close(A.attn_fwd_nolse_plain(q, k, v, causal, 0.3), o2, atol=0, rtol=0)
+
+
+def test_flash_fwd_saves_no_statistics_and_runs_no_backward_kernel():
+    q, k, v = (_t(x, True) for x in _qkv(12, 20, seed=12))
+    out = A.flash_fwd_xla_bwd(q, k, v, sm_scale=0.25)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 3 and all(s.shape == x.shape for s, x in zip(saved, (q, k, v)))
+    full = A.flash_mha(q, k, v, sm_scale=0.25)
+    assert len(full.grad_fn.saved_tensors) == 5  # q, k, v, o, lse
+    gq, gk, gv = torch.autograd.grad(out.sum(), (q, k, v))
+    rq, rk, rv = torch.autograd.grad(A.xla_mha(q, k, v, sm_scale=0.25).sum(), (q, k, v))
+    for a, b in ((gq, rq), (gk, rk), (gv, rv)):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("fn", ["flash_mha", "flash_fwd_xla_bwd"])
+def test_flash_wrappers_refuse_other_devices(fn):
+    q = torch.empty((1, 1, 4, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        getattr(A, fn)(q, q, q)

@@ -50,6 +50,74 @@ def test_attention_kernels_match_plain(card, Tq, Tk, causal):
         assert err <= tol * ref.abs().max().item() + 1e-3
 
 
+@pytest.mark.parametrize("Tq,Tk,causal", [(77, 131, False), (200, 200, True)])
+def test_flash_routes_on_card(card, Tq, Tk, causal):
+    """``flash`` launches all three kernels; ``flash_fwd`` the forward
+    instance without the log-sum-exp and no backward kernel, its gradients
+    being those of the plain path."""
+    from whisper_finetune_torch.ops import attention as A
+
+    def heads(T):
+        return torch.randn((2, T, 3, 64), generator=card, device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = heads(Tq), heads(Tk), heads(Tk), heads(Tq)
+    grads = {}
+    for impl, want in (("flash", [1, 1, 1]), ("flash_fwd", [1, 0, 0]), ("xla", [0, 0, 0])):
+        counts = [fn.launches for fn in A.KERNELS]
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        o = A.attention(qr, kr, vr, causal=causal, sm_scale=0.125, impl=impl)
+        o.backward(do)
+        assert [fn.launches - c for fn, c in zip(A.KERNELS, counts)] == want
+        grads[impl] = (o.detach(), qr.grad, kr.grad, vr.grad)
+    ref = A.attn_fwd_nolse_plain(q.float(), k.float(), v.float(), causal, 0.125)
+    for impl in ("flash", "flash_fwd"):
+        err = (grads[impl][0].float() - ref).abs().max().item()
+        assert err <= 0.02 * ref.abs().max().item() + 1e-3
+    assert torch.equal(grads["flash"][0], grads["flash_fwd"][0])  # one forward, lse or not
+    for a, b in zip(grads["flash_fwd"][1:], grads["xla"][1:]):
+        assert torch.equal(a, b)  # the plain backward on the same q, k, v
+
+
+def test_muon_flagship_step_on_card(card):
+    """Two flagship steps at toy size with ``attn_impl: flash``: launches
+    equal the blocks the forward ran, and the parameters move."""
+    from whisper_finetune_torch.models import ModelDimensions, init_params
+    from whisper_finetune_torch.models import whisper as W
+    from whisper_finetune_torch.models.whisper import ForwardConfig
+    from whisper_finetune_torch.ops import attention as A
+    from whisper_finetune_torch.optim import get_optimizer, get_schedule
+    from whisper_finetune_torch.train import TrainState, make_train_step
+
+    dims = ModelDimensions(n_mels=80, n_audio_ctx=150, n_audio_state=128, n_audio_head=2,
+                           n_audio_layer=4, n_vocab=500, n_text_ctx=24, n_text_state=128,
+                           n_text_head=2, n_text_layer=4)
+    model = init_params(dims, seed=0)
+    conf = {"muon": True, "muon_params": {"lr": 1e-3, "weight_decay": 0.01},
+            "params": {"lr": 1e-3}, "muon_momentum_dtype": "int8", "muon_aux_8bit": True}
+    tx, _ = get_optimizer(model.leaves(), conf, get_schedule({"type": "cosine", "warmup_steps": 1}, 10))
+    leaves = [p for _, p in model.leaves()]
+    state = TrainState(model, tx.init(leaves), 0)
+    fcfg = ForwardConfig(attn_impl="flash", stochastic_depth=0.3, dsa_apply=True,
+                         dsa_time_mask_param=40)
+    step = make_train_step(dims, fcfg, tx, 0.1, max_grad_norm=1.0, accum_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    batch = {"mel": torch.from_numpy(rng.standard_normal((2, 2, 80, 300)).astype(np.float32)),
+             "dec_input": torch.from_numpy(rng.integers(0, 500, (2, 2, 24))),
+             "dec_output": torch.from_numpy(rng.integers(0, 500, (2, 2, 24)))}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    before = [p.detach().clone() for p in leaves]
+    for fn in A.KERNELS:
+        fn.launches = 0
+    W.encoder_forward.blocks_run = W.decoder_forward.blocks_run = 0
+    for _ in range(2):
+        state, loss = step(state, batch, card)
+        assert np.isfinite(loss.item())
+    sites = W.encoder_forward.blocks_run + 2 * W.decoder_forward.blocks_run
+    assert 0 < sites < 2 * 2 * (4 + 8)
+    assert [fn.launches for fn in A.KERNELS] == [2 * sites, sites, sites]
+    assert all(not torch.equal(a, b) for a, b in zip(before, leaves))
+
+
 @pytest.mark.parametrize("nb", [256, 100])
 def test_fused_adamw8_kernel_matches_plain(card, nb):
     from whisper_finetune_torch.ops.fused_adamw8 import fused_adamw8_leaf, fused_adamw8_plain

@@ -161,5 +161,26 @@ def test_init_state_layout():
 
 
 def test_schedule_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="schedulers"):
-        tq.adamw_8bit(lambda c: 1e-3)
+    """Schedules are ported now: a callable learning rate is read from the
+    optimizer's own count of updates, before each update, as in JAX."""
+    seen = []
+
+    def schedule(count):
+        seen.append(count)
+        return 1e-2 * (count + 1)
+
+    params = _tree(np.random.default_rng(2))
+    keys = sorted(params)
+    grads = [{k: np.ones_like(v) for k, v in params.items()} for _ in range(2)]
+    jtx = jq.adamw_8bit(lambda c: 1e-2 * (c + 1), weight_decay=0.0)
+    jp = jax.tree.map(jnp.asarray, params)
+    js = jtx.init(jp)
+    ttx = tq.adamw_8bit(schedule, weight_decay=0.0)
+    tleaves = [_t(params[k]) for k in keys]
+    ts = ttx.init(tleaves)
+    for g in grads:
+        jp, js = jtx.fused_apply(jax.tree.map(jnp.asarray, g), js, jp)
+        ts = ttx.fused_apply([_t(g[k]) for k in keys], ts, tleaves)
+    assert seen == [0, 1] and ttx.lr(5) == pytest.approx(6e-2)
+    for k, leaf in zip(keys, tleaves):
+        np.testing.assert_allclose(leaf.numpy(), np.asarray(jp[k]), atol=1e-6, rtol=0, err_msg=k)

@@ -38,7 +38,9 @@ def test_port_imports_no_jax():
         "import whisper_finetune_torch, whisper_finetune_torch.models, "
         "whisper_finetune_torch.ops, whisper_finetune_torch.optim, "
         "whisper_finetune_torch.train, whisper_finetune_torch.ops.fused_adamw8, "
-        "whisper_finetune_torch._build\n"
+        "whisper_finetune_torch._build, whisper_finetune_torch.config, "
+        "whisper_finetune_torch.optim.muon, whisper_finetune_torch.optim.optimizers, "
+        "whisper_finetune_torch.optim.schedulers, whisper_finetune_torch.optim.state_bridge\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'whisper_finetune_tpu')]\n"
         "print(bad)\n"
@@ -151,9 +153,17 @@ def test_init_distributions():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("remat_policy", "dots"), ("stochastic_depth", 0.1), ("dsa_apply", True),
-    ("precast_weights", False), ("lora_scale", 2.0), ("remat_encoder_last_only", True),
+    ("remat_policy", "dots"), ("remat_policy", "save:attn_probs"), ("lora_scale", 2.0),
+    ("lora_dropout", 0.1),
 ])
 def test_unported_forward_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ForwardConfig(**{field: value}).check_supported()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("stochastic_depth", 0.1), ("dsa_apply", True), ("precast_weights", False),
+    ("remat_encoder_last_only", True), ("attn_impl", "flash"), ("attn_impl", "flash_fwd"),
+])
+def test_ported_forward_options_are_supported(field, value):
+    ForwardConfig(**{field: value}).check_supported()

@@ -1,0 +1,253 @@
+"""Run configuration: the YAML schema's defaults and the functions that turn a
+config ``dict`` into the model's and the feature stage's static settings.
+
+The schema is the JAX package's (``whisper_finetune_tpu/config.py``; configs
+written for it run unmodified): :func:`with_defaults` fills the sections the
+functions and the optimizer factory read (``training``, ``augmentation``,
+``optimizer``, ``lr_scheduler``, ``model``) and checks their values;
+:func:`build_forward_config` and :func:`build_featurize_config` are the
+ones of ``scripts/finetune.py``. The dataset section and the training
+script itself are not ported yet.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict, Optional
+
+from whisper_finetune_torch.models.whisper import ForwardConfig
+from whisper_finetune_torch.ops.attention import resolve_auto_impls
+from whisper_finetune_torch.ops.spec_augment import FeaturizeConfig
+
+_TRAINING_DEFAULTS: Dict[str, Any] = {
+    "accum_grad_steps": 1,
+    "label_smoothing": 0.0,
+    "train_only_decoder": False,
+    "train_only_encoder": False,
+    "max_grad_norm": 1.0,
+    "stochastic_depth": 0.0,
+    "epochs": 1,
+    "eval_steps": 0.25,
+    "save_all_checkpoints": False,
+    "upload_models_to_wandb": False,
+    "max_train_loss": 25.0,
+    "mixed_precision_training": True,
+    "mp_dtype": "bf16",
+    "gradient_checkpointing_encoder": True,
+    "gradient_checkpointing_encoder_last_only": False,
+    "gradient_checkpointing_decoder": True,
+    "ddp_find_unused_parameters": None,
+    "resume_from": None,
+    "save_train_state": False,
+    "zero_shard_optimizer": False,
+    # Reduced-precision gradient accumulator ("bfloat16" halves the gradient
+    # tree; None keeps float32).
+    "grad_accum_dtype": None,
+    "split_optimizer_step": "auto",
+    "manual_backward": "auto",
+    "manual_precast_weights": False,
+    # Rematerialization policy inside checkpointed blocks; the port runs
+    # "full" so far.
+    "remat_policy": "full",
+    # "auto" picks the per-site mix for the device (ops/attention.py
+    # resolve_auto_impls); explicit: "xla", "flash", "splash", "flash_fwd".
+    "attn_impl": "auto",
+    "compiler_options": None,
+}
+
+_AUG_DEFAULTS: Dict[str, Any] = {
+    "spec_augment": {
+        "apply": False,
+        "time_mask_param": 100,
+        "freq_mask_param": 43,
+        "time_warp_w": 80,
+        "p": 1.0,
+    },
+    "deep_spec_augment": {
+        "apply": False,
+        "time_mask_param": 100,
+        "freq_mask_param": 27,
+        "p": 1.0,
+        "layer_indices": None,
+    },
+    "bpe_dropout": 0.0,
+    "extremes_spec_augment": {
+        "apply": False,
+        "low_freq_range": 10,
+        "high_freq_range": 20,
+    },
+    "audio_augment": {
+        "apply_baseline_aug": False,
+        "apply_office_aug": False,
+        "apply_advanced_aug": False,
+        "time_stretch": {"min_rate": 0.8, "max_rate": 1.25},
+    },
+}
+
+_OPTIMIZER_DEFAULTS: Dict[str, Any] = {
+    "type": "adamw",
+    "8bit": False,
+    "muon": None,
+    "muon_ndim_threshold": 2,
+    "muon_params": {},
+    "muon_match_adamw_update_rms": True,
+    "muon_match_factor": 0.2,
+    # Muon momentum storage: "bfloat16", "int8" (blockwise), None = float32.
+    "muon_momentum_dtype": None,
+    "muon_ns_steps": 5,
+    "muon_ns_coeffs": "classic",
+    # Blockwise 8-bit state for the auxiliary AdamW leaves.
+    "muon_aux_8bit": False,
+    # Bound (MB) on the float32 working set of one Muon leaf update; null
+    # disables chunking.
+    "muon_chunk_temp_mb": 128.0,
+    "params": {},
+}
+
+_SCHEDULER_DEFAULTS: Dict[str, Any] = {
+    "type": "linear",
+    "warmup_steps": 0,
+    "lr_num_cycles": 1,
+    "lr_gamma": 1.0,
+    "chill_steps": 100,
+    "chill_range": 0.02,
+}
+
+
+def _merge_defaults(section: Optional[Dict[str, Any]], defaults: Dict[str, Any]) -> Dict[str, Any]:
+    out = copy.deepcopy(defaults)
+    if not section:
+        return out
+    for key, value in section.items():
+        if isinstance(value, dict) and isinstance(out.get(key), dict):
+            merged = copy.deepcopy(out[key])
+            merged.update(value)
+            out[key] = merged
+        else:
+            out[key] = value
+    return out
+
+
+def with_defaults(config: Dict[str, Any]) -> Dict[str, Any]:
+    """A raw config dict with the training, augmentation, optimizer,
+    lr_scheduler and model sections normalized (defaults filled, values
+    checked as ``validate_config`` checks them). Other sections pass through.
+    Returns a new dict; the input is not mutated."""
+    if not isinstance(config, dict):
+        raise TypeError(f"Config must be a mapping, got {type(config).__name__}")
+    out = dict(config)
+    model = dict(config.get("model") or {})
+    model.setdefault("bfloat16", False)
+    model.setdefault("lora", False)
+    model.setdefault("lora_config", {})
+    out["model"] = model
+    out["training"] = _merge_defaults(config.get("training"), _TRAINING_DEFAULTS)
+    out["augmentation"] = _merge_defaults(config.get("augmentation"), _AUG_DEFAULTS)
+    out["optimizer"] = _merge_defaults(config.get("optimizer"), _OPTIMIZER_DEFAULTS)
+    out["lr_scheduler"] = _merge_defaults(config.get("lr_scheduler"), _SCHEDULER_DEFAULTS)
+
+    tr = out["training"]
+    if int(tr["accum_grad_steps"]) < 1:
+        raise ValueError("training.accum_grad_steps must be >= 1")
+    if not 0.0 <= float(tr["stochastic_depth"]) < 1.0:
+        raise ValueError("training.stochastic_depth must be in [0, 1)")
+    if tr["mp_dtype"] not in ("fp16", "bf16", "bfloat16", "fp32"):
+        raise ValueError(f"training.mp_dtype must be fp16/bf16/fp32, got {tr['mp_dtype']}")
+    if tr["gradient_checkpointing_encoder"] and tr["gradient_checkpointing_encoder_last_only"]:
+        raise ValueError(
+            "gradient_checkpointing_encoder_last_only is not supported when "
+            "gradient_checkpointing_encoder is enabled"
+        )
+    opt = out["optimizer"]
+    if int(opt["muon_ns_steps"]) < 1:
+        raise ValueError(f"optimizer.muon_ns_steps must be >= 1, got {opt['muon_ns_steps']}")
+    if opt["muon_ns_coeffs"] not in ("classic", "polar_express"):
+        raise ValueError(
+            "optimizer.muon_ns_coeffs must be 'classic' or 'polar_express', "
+            f"got {opt['muon_ns_coeffs']!r}"
+        )
+    aug = out["augmentation"]
+    for section_name in ("spec_augment", "deep_spec_augment"):
+        p = float(aug[section_name].get("p", 1.0))
+        if not 0.0 <= p <= 1.0:
+            raise ValueError(f"augmentation.{section_name}.p must be in [0, 1], got {p}")
+    return out
+
+
+def load_config(path) -> Dict[str, Any]:
+    """Read a YAML run config and normalize it with :func:`with_defaults`."""
+    import yaml
+
+    with open(path) as f:
+        return with_defaults(yaml.safe_load(f))
+
+
+def _compute_dtype(t_config: Dict) -> str:
+    if not t_config["mixed_precision_training"]:
+        return "float32"
+    # fp16 configs compute in bfloat16: no GradScaler exists here.
+    if t_config["mp_dtype"] in ("fp16", "bf16", "bfloat16"):
+        return "bfloat16"
+    return "float32"
+
+
+def _lora_hparams(lcfg: Dict) -> Dict:
+    """Both key spellings: rank / lora_alpha / lora_dropout and the bare names."""
+    return {
+        "rank": int(lcfg.get("rank", 16)),
+        "alpha": float(lcfg.get("lora_alpha", lcfg.get("alpha", 32))),
+        "dropout": float(lcfg.get("lora_dropout", lcfg.get("dropout", 0.0))),
+    }
+
+
+def build_forward_config(config: Dict, is_lora_run: bool, device="cuda") -> ForwardConfig:
+    """The model's static forward settings from a normalized config.
+    ``attn_impl: auto`` resolves for ``device``."""
+    t = config["training"]
+    dsa = config["augmentation"]["deep_spec_augment"]
+    # train_only_* zeroes stochastic depth on the frozen side.
+    sd = float(t["stochastic_depth"])
+    sd_encoder = 0.0 if t["train_only_decoder"] else sd
+    sd_decoder = 0.0 if t["train_only_encoder"] else sd
+    lora_cfg = _lora_hparams(config["model"].get("lora_config", {}) or {})
+    if is_lora_run:
+        raise NotImplementedError(
+            f"LoRA runs (rank {lora_cfg['rank']}, alpha {lora_cfg['alpha']}) are not "
+            "ported yet: ROADMAP queue 1, item 8"
+        )
+    attn_impl = str(t.get("attn_impl", "auto"))
+    attn_kwargs = (resolve_auto_impls(device) if attn_impl == "auto"
+                   else {"attn_impl": attn_impl})
+    return ForwardConfig(
+        compute_dtype=_compute_dtype(t),
+        remat_encoder=bool(t["gradient_checkpointing_encoder"]),
+        remat_encoder_last_only=bool(t["gradient_checkpointing_encoder_last_only"]),
+        remat_decoder=bool(t["gradient_checkpointing_decoder"]),
+        remat_policy=str(t.get("remat_policy", "full")),
+        stochastic_depth=sd,
+        stochastic_depth_encoder=sd_encoder,
+        stochastic_depth_decoder=sd_decoder,
+        dsa_apply=bool(dsa["apply"]),
+        dsa_time_mask_param=int(dsa["time_mask_param"]),
+        dsa_freq_mask_param=int(dsa["freq_mask_param"]),
+        dsa_p=float(dsa.get("p", 1.0)),
+        dsa_layer_indices=(tuple(dsa["layer_indices"]) if dsa.get("layer_indices") else None),
+        **attn_kwargs,
+    )
+
+
+def build_featurize_config(config: Dict, n_mels: int) -> FeaturizeConfig:
+    aug = config["augmentation"]
+    sa = aug["spec_augment"]
+    ex = aug["extremes_spec_augment"]
+    return FeaturizeConfig(
+        n_mels=n_mels,
+        spec_augment=bool(sa["apply"]),
+        time_mask_param=int(sa["time_mask_param"]),
+        freq_mask_param=int(sa["freq_mask_param"]),
+        time_warp_w=int(sa["time_warp_w"]),
+        p=float(sa.get("p", 1.0)),
+        extremes=bool(ex["apply"]),
+        low_freq_range=int(ex["low_freq_range"]),
+        high_freq_range=int(ex["high_freq_range"]),
+    )

@@ -1,10 +1,16 @@
 // Flash-style attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
 //
 // Replaces the TPU's splash attention (whisper_finetune_tpu/ops/attention.py:
-// splash_mha, kernel built by _splash_kernel, variant fused_bwd). Same math:
-// q scaled by sm_scale (splash pre-scales q by D**-0.5 = 0.125, exact in
-// bf16; here the float32 scores are scaled, which is the same number), online
-// softmax with float32 statistics, bf16 in and out, float32 accumulators.
+// splash_mha, kernel built by _splash_kernel, variant fused_bwd) and its
+// flash attention (same file: flash_mha, and flash_fwd_xla_bwd, which keeps
+// only the forward). Same math in all of them: scores scaled by sm_scale
+// (splash pre-scales q by D**-0.5 = 0.125, exact in bf16, flash scales the
+// scores inside; here the float32 scores are scaled, which is the same
+// number), online softmax with float32 statistics, bf16 in and out, float32
+// accumulators. The forward comes in two instances: with the per-row
+// log-sum-exp the backward kernels read, and without it (kWriteLse = false)
+// for flash_fwd_xla_bwd, whose backward is plain and which, like the TPU
+// forward under save_residuals=False, writes no row statistics.
 //
 // Layout: q, o, do share one stride set (B, H, T, 64) with the head dim
 // contiguous; k, v, dk, dv share another. lse and delta are (B, H, Tq)
@@ -164,6 +170,7 @@ __device__ __forceinline__ int acc_col(int nt, int j, int t) {
   return nt * 8 + t * 2 + (j & 1);
 }
 
+template <bool kWriteLse>
 __global__ void __launch_bounds__(NT)
 attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -242,7 +249,7 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const uint32_t val = pack_f2(acc[nt][2 * r] * inv, acc[nt][2 * r + 1] * inv);
       *reinterpret_cast<uint32_t*>(orow + nt * 8 + t * 2) = val;
     }
-    if (t == 0)
+    if (kWriteLse && t == 0)
       lse[(long long)bh * d.Tq + row[r]] =
           l_r[r] > 0.f ? (m_r[r] + log2f(l_r[r])) * LN2 : INFINITY;
   }
@@ -425,13 +432,20 @@ Dims make_dims(int B, int H, int Tq, int Tk, long long sqb, long long sqh,
       void *stream
 #define WFT_DIMS make_dims(B, H, Tq, Tk, sqb, sqh, sqt, skb, skh, skt, scale, causal)
 
+// lse may be null: the forward then writes no log-sum-exp.
 extern "C" int wft_attn_fwd(const void* q, const void* k, const void* v, void* o,
                             void* lse, WFT_DIMS_ARGS) {
   const dim3 grid((Tq + BM - 1) / BM, B * H);
-  attn_fwd_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), WFT_DIMS);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lse != nullptr)
+    attn_fwd_kernel<true><<<grid, NT, 0, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o),
+        static_cast<float*>(lse), WFT_DIMS);
+  else
+    attn_fwd_kernel<false><<<grid, NT, 0, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), nullptr, WFT_DIMS);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,12 +15,24 @@ leaf (its backward is a single stack; indexing ``w[i]`` in the layer loop
 would make autograd build a zero-padded full-size gradient per layer). In a
 bf16 forward the stacked matrices are first cast once (``w.to(bf16)``, the
 counterpart of ``_cast_blocks_once``), which is numerically the cast that
-``_dense`` would do at use.
+``_dense`` would do at use; with ``precast_weights=False`` they stay float32
+and each block casts its own slices at use (inside the checkpointed block,
+so only one layer's bf16 copies are live: ``_cast_block_slice``).
 
 Precision policy: parameters float32, matmuls and convs in ``compute_dtype``,
 layer norms and softmax in float32, the tied logits stored in the compute
 dtype and then upcast. ``remat_policy="full"`` is
 ``torch.utils.checkpoint`` (non-reentrant) around each block.
+
+Randomness of a training forward (stochastic depth, deep SpecAugment) is a
+:class:`ForwardDraws`: every uniform number of the forward, drawn at once by
+:func:`draw_forward` and held on the host. The layer loop reads the coins as
+Python floats (a skipped layer runs nothing and syncs nothing) and the masks
+are built from them outside the checkpointed blocks, so a recompute sees
+exactly the forward's values. The layout is the JAX package's
+(``encoder_step_rng`` / ``decoder_step_rng``): per encoder layer one coin and
+one (time, feature) mask pair, one gate per forward, per decoder layer one
+coin.
 
 A float32 forward on the card would run the stem's convolutions through
 cuDNN in TF32 unless ``torch.backends.cudnn.allow_tf32`` is off; the main
@@ -53,7 +65,8 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class ForwardConfig:
     """The JAX ``ForwardConfig`` fields. Values the port does not run yet
-    raise ``NotImplementedError`` from :meth:`check_supported`."""
+    (``remat_policy`` other than ``full``, LoRA) raise
+    ``NotImplementedError`` from :meth:`check_supported`."""
 
     compute_dtype: str = "bfloat16"
     remat_encoder: bool = True
@@ -81,6 +94,21 @@ class ForwardConfig:
         return getattr(torch, self.compute_dtype)
 
     @property
+    def sd_encoder(self) -> float:
+        return (self.stochastic_depth if self.stochastic_depth_encoder is None
+                else self.stochastic_depth_encoder)
+
+    @property
+    def sd_decoder(self) -> float:
+        return (self.stochastic_depth if self.stochastic_depth_decoder is None
+                else self.stochastic_depth_decoder)
+
+    @property
+    def needs_draws(self) -> bool:
+        """Whether a training forward draws random numbers."""
+        return bool(self.sd_encoder > 0.0 or self.sd_decoder > 0.0 or self.dsa_apply)
+
+    @property
     def enc_attn(self) -> str:
         return self.attn_impl_encoder or self.attn_impl
 
@@ -93,23 +121,76 @@ class ForwardConfig:
         return self.attn_impl_cross or self.attn_impl
 
     def check_supported(self) -> None:
-        later = "ROADMAP queue 1, item 3 (remaining ForwardConfig features)"
-        unported = {
-            "remat_policy": self.remat_policy != "full",
-            "remat_encoder_last_only": self.remat_encoder_last_only,
-            "stochastic_depth": bool(self.stochastic_depth
-                                     or self.stochastic_depth_encoder
-                                     or self.stochastic_depth_decoder),
-            "dsa_apply (deep SpecAugment)": self.dsa_apply,
-            "precast_weights=False": not self.precast_weights,
-        }
-        for name, hit in unported.items():
-            if hit:
-                raise NotImplementedError(f"ForwardConfig {name} is not ported yet: {later}")
+        if self.remat_policy != "full":
+            raise NotImplementedError(
+                f"ForwardConfig remat_policy {self.remat_policy!r} is not ported yet: "
+                "ROADMAP queue 1, item 3 (the remat grammar)"
+            )
         if self.lora_scale or self.lora_dropout:
             raise NotImplementedError(
                 "ForwardConfig LoRA is not ported yet: ROADMAP queue 1, item 8"
             )
+
+
+def dsa_layer_flags(fcfg: ForwardConfig, n_layers: int) -> np.ndarray:
+    """Boolean per-layer flags for deep SpecAugment, last layer always off."""
+    flags = np.zeros((n_layers,), dtype=bool)
+    if not fcfg.dsa_apply:
+        return flags
+    if fcfg.dsa_layer_indices is None:
+        flags[: max(n_layers - 1, 0)] = True
+        return flags
+    for idx in fcfg.dsa_layer_indices:
+        if idx >= n_layers:
+            raise ValueError(f"deep_spec_augment layer index {idx} out of range")
+        if idx == n_layers - 1:
+            continue  # the final block is skipped silently
+        flags[idx] = True
+    return flags
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardDraws:
+    """Every uniform [0, 1) draw of one training forward, float32 on the host.
+
+    A layer is skipped where its coin is below the stochastic-depth rate;
+    deep SpecAugment is on where ``dsa_gate`` is below ``dsa_p``; the mask
+    pairs are [width, start] draws (see :func:`axis_keep_masks`)."""
+
+    enc_coin: np.ndarray  # (n_audio_layer,)
+    dec_coin: np.ndarray  # (n_text_layer,)
+    dsa_gate: float
+    dsa_time: np.ndarray  # (n_audio_layer, 2)
+    dsa_feat: np.ndarray  # (n_audio_layer, 2)
+
+
+def draw_forward(generator: Optional[torch.Generator], dims: ModelDimensions,
+                 device, n: int = 1) -> List[ForwardDraws]:
+    """Draws for ``n`` forwards from ``generator`` (on ``device``): one
+    ``torch.rand`` and one transfer to the host for all of them."""
+    Le, Ld = dims.n_audio_layer, dims.n_text_layer
+    per = 5 * Le + Ld + 1
+    u = torch.rand((n, per), generator=generator, device=device).cpu().numpy()
+    return [
+        ForwardDraws(
+            enc_coin=r[:Le], dec_coin=r[Le:Le + Ld], dsa_gate=float(r[Le + Ld]),
+            dsa_time=r[Le + Ld + 1:3 * Le + Ld + 1].reshape(Le, 2),
+            dsa_feat=r[3 * Le + Ld + 1:].reshape(Le, 2),
+        )
+        for r in u
+    ]
+
+
+def axis_keep_masks(draws: np.ndarray, size: int, mask_param: int) -> np.ndarray:
+    """(L, size) {0, 1} keep-vectors from (L, 2) uniform draws [width, start]:
+    width ~ U[0, mask_param), start ~ U[0, size - width), torchaudio's axis
+    masking, in float32 like ``_axis_mask``."""
+    draws = np.asarray(draws, np.float32)
+    width = draws[:, :1] * np.float32(mask_param)
+    start = draws[:, 1:2] * (np.float32(size) - width)
+    idx = np.arange(size, dtype=np.float32)[None, :]
+    masked = (idx >= start) & (idx < start + width)
+    return np.where(masked, np.float32(0.0), np.float32(1.0))
 
 
 # ---------------------------------------------------------------------------
@@ -170,8 +251,11 @@ class Whisper(nn.Module):
         return flatten(self.params())
 
     def forward(self, mel: torch.Tensor, tokens: torch.Tensor,
-                fcfg: ForwardConfig = ForwardConfig(), train: bool = False) -> torch.Tensor:
-        return forward_impl(self.params(), mel, tokens, self.dims, fcfg, train)
+                fcfg: ForwardConfig = ForwardConfig(), train: bool = False,
+                draws: Optional[ForwardDraws] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return forward_impl(self.params(), mel, tokens, self.dims, fcfg, train,
+                            draws, generator)
 
 
 # ---------------------------------------------------------------------------
@@ -293,10 +377,15 @@ def _mlp(x: torch.Tensor, p: Params, dtype: torch.dtype) -> torch.Tensor:
     return _dense(h, p["fc2_w"], p["fc2_b"], dtype)
 
 
-def _encoder_block(x: torch.Tensor, bp: Params, fcfg: ForwardConfig,
-                   n_head: int) -> torch.Tensor:
+def _encoder_block(x: torch.Tensor, bp: Params, fcfg: ForwardConfig, n_head: int,
+                   time_keep: Optional[torch.Tensor] = None,
+                   feat_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``time_keep`` (T,) and ``feat_keep`` (d,) are this layer's deep
+    SpecAugment keep-vectors (batch-shared), None where it is off."""
     dtype = fcfg.dtype
     x_ln = layer_norm(x, bp["attn_ln"])
+    if time_keep is not None:
+        x_ln = x_ln * time_keep[None, :, None] * feat_keep[None, None, :]
     x = x + multi_head_attention(x_ln, x_ln, bp["attn"], n_head, dtype,
                                  impl=fcfg.enc_attn)
     return x + _mlp(layer_norm(x, bp["mlp_ln"]), bp["mlp"], dtype)
@@ -314,25 +403,51 @@ def _decoder_block(x: torch.Tensor, bp: Params, xa: torch.Tensor,
     return x + _mlp(layer_norm(x, bp["mlp_ln"]), bp["mlp"], dtype)
 
 
-def _layer_views(blocks: Params, n_layers: int, dtype: torch.dtype) -> List[Params]:
-    """Per-layer dicts from the stacked tree: one ``unbind(0)`` per leaf,
-    after casting the stacked (L, in, out) matrices to the compute dtype once
-    (the counterpart of ``_cast_blocks_once``; 1-D-per-layer leaves stay
-    float32 and are cast at use, as in JAX)."""
+def _layer_views(blocks: Params, n_layers: int, dtype: torch.dtype,
+                 precast: bool = True) -> List[Params]:
+    """Per-layer dicts from the stacked tree: one ``unbind(0)`` per leaf.
+    With ``precast`` the stacked (L, in, out) matrices are first cast to the
+    compute dtype once (the counterpart of ``_cast_blocks_once``); without
+    it they stay float32 and ``_dense`` casts each slice at use
+    (``_cast_block_slice``). 1-D-per-layer leaves stay float32 and are cast
+    at use either way, as in JAX."""
     layers: List[Params] = [{} for _ in range(n_layers)]
     for path, a in flatten(blocks):
-        if dtype != torch.float32 and a.dtype == torch.float32 and a.dim() >= 3:
+        if precast and dtype != torch.float32 and a.dtype == torch.float32 and a.dim() >= 3:
             a = a.to(dtype)
         for i, view in enumerate(a.unbind(0)):
             _set(layers[i], path, view)
     return layers
 
 
+def _stochastic(block, keep_prob: float):
+    """``block`` with stochastic depth's rescale for a kept layer:
+    ``x + (block(x) - x) / keep_prob``. The divisor is a tensor in x's dtype,
+    the value JAX's weakly typed scalar takes."""
+    if keep_prob >= 1.0:
+        return block
+
+    def kept(x, *args):
+        out = block(x, *args)
+        return x + (out - x) / torch.full((), keep_prob, dtype=x.dtype, device=x.device)
+
+    return kept
+
+
 def _run_block(fn, remat: bool, *args):
     if remat and torch.is_grad_enabled():
-        # The forward draws no random numbers, so no RNG state is stashed.
+        # Every random value a block uses is drawn outside it and passed in,
+        # so no RNG state is stashed for the recompute.
         return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
     return fn(*args)
+
+
+def _kept(coins: Optional[np.ndarray], p: float, n_layers: int) -> List[bool]:
+    """Which layers run: all of them without stochastic depth, else those
+    whose coin is not below the drop rate ``p``."""
+    if coins is None or p <= 0.0:
+        return [True] * n_layers
+    return [not bool(c < np.float32(p)) for c in coins]
 
 
 # ---------------------------------------------------------------------------
@@ -370,37 +485,86 @@ def decoder_embed(dec: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torc
 # Encoder / decoder forwards
 # ---------------------------------------------------------------------------
 
+def _training_draws(fcfg: ForwardConfig, dims: ModelDimensions, train: bool,
+                    draws: Optional[ForwardDraws], generator, device
+                    ) -> Optional[ForwardDraws]:
+    if not (train and fcfg.needs_draws):
+        return None
+    return draws if draws is not None else draw_forward(generator, dims, device)[0]
+
+
 def encoder_forward(params: Params, mel: torch.Tensor, dims: ModelDimensions,
-                    fcfg: ForwardConfig, train: bool = False) -> torch.Tensor:
-    """mel (B, n_mels, 3000) -> audio features (B, n_audio_ctx, d), float32."""
+                    fcfg: ForwardConfig, train: bool = False,
+                    draws: Optional[ForwardDraws] = None,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """mel (B, n_mels, 3000) -> audio features (B, n_audio_ctx, d), float32.
+    A training forward with stochastic depth or deep SpecAugment takes its
+    random numbers from ``draws``, or draws them from ``generator``."""
     fcfg.check_supported()
     enc = params["encoder"]
-    x = conv_stem(enc, mel, dims, fcfg.dtype)
-    for bp in _layer_views(enc["blocks"], dims.n_audio_layer, fcfg.dtype):
-        x = _run_block(_encoder_block, fcfg.remat_encoder, x, bp, fcfg, dims.n_audio_head)
+    dtype, L = fcfg.dtype, dims.n_audio_layer
+    x = conv_stem(enc, mel, dims, dtype)
+    draws = _training_draws(fcfg, dims, train, draws, generator, x.device)
+
+    kept = _kept(draws.enc_coin if draws else None, fcfg.sd_encoder, L)
+    gate = draws is not None and draws.dsa_gate < np.float32(fcfg.dsa_p)
+    dsa_on = dsa_layer_flags(fcfg, L) & bool(gate)
+    time_keep = feat_keep = None
+    if dsa_on.any():
+        time_keep = torch.from_numpy(axis_keep_masks(
+            draws.dsa_time, x.shape[1], fcfg.dsa_time_mask_param)).to(x.device, dtype)
+        feat_keep = torch.from_numpy(axis_keep_masks(
+            draws.dsa_feat, x.shape[2], fcfg.dsa_freq_mask_param)).to(x.device, dtype)
+    block = _stochastic(_encoder_block, 1.0 - fcfg.sd_encoder if draws else 1.0)
+
+    last_only = fcfg.remat_encoder_last_only and not fcfg.remat_encoder and L > 1
+    views = _layer_views(enc["blocks"], L, dtype, fcfg.precast_weights)
+    for i, bp in enumerate(views):
+        if not kept[i]:
+            continue
+        encoder_forward.blocks_run += 1
+        masks = (time_keep[i], feat_keep[i]) if dsa_on[i] else (None, None)
+        remat = fcfg.remat_encoder or (last_only and i == L - 1)
+        x = _run_block(block, remat, x, bp, fcfg, dims.n_audio_head, *masks)
     return layer_norm(x, enc["ln_post"]).float()
 
 
 def decoder_forward(params: Params, tokens: torch.Tensor, xa: torch.Tensor,
                     dims: ModelDimensions, fcfg: ForwardConfig,
-                    train: bool = False) -> torch.Tensor:
+                    train: bool = False, draws: Optional[ForwardDraws] = None,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """tokens (B, T) int, xa (B, S, d) -> logits (B, T, n_vocab) float32."""
     fcfg.check_supported()
     dec = params["decoder"]
-    dtype = fcfg.dtype
+    dtype, L = fcfg.dtype, dims.n_text_layer
     x = decoder_embed(dec, tokens, dtype)
     xa = xa.to(dtype)
-    for bp in _layer_views(dec["blocks"], dims.n_text_layer, dtype):
-        x = _run_block(_decoder_block, fcfg.remat_decoder, x, bp, xa, fcfg, dims.n_text_head)
+    draws = _training_draws(fcfg, dims, train, draws, generator, x.device)
+    kept = _kept(draws.dec_coin if draws else None, fcfg.sd_decoder, L)
+    block = _stochastic(_decoder_block, 1.0 - fcfg.sd_decoder if draws else 1.0)
+    for i, bp in enumerate(_layer_views(dec["blocks"], L, dtype, fcfg.precast_weights)):
+        if not kept[i]:
+            continue
+        decoder_forward.blocks_run += 1
+        x = _run_block(block, fcfg.remat_decoder, x, bp, xa, fcfg, dims.n_text_head)
     x = layer_norm(x, dec["ln"])
     # Tied output embedding: stored in the compute dtype, upcast for the loss.
     logits = torch.matmul(x.to(dtype), dec["tok_emb"].to(dtype).t())
     return logits.float()
 
 
+# Blocks run by the layer loops (a layer dropped by stochastic depth is not
+# counted; a remat recompute is not counted either): with the kernels'
+# ``.launches`` they say how many launches a run must have made.
+encoder_forward.blocks_run = 0
+decoder_forward.blocks_run = 0
+
+
 def forward_impl(params: Params, mel: torch.Tensor, tokens: torch.Tensor,
                  dims: ModelDimensions, fcfg: ForwardConfig,
-                 train: bool = False) -> torch.Tensor:
+                 train: bool = False, draws: Optional[ForwardDraws] = None,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Teacher-forced forward: (mel, decoder tokens) -> float32 logits."""
-    xa = encoder_forward(params, mel, dims, fcfg, train)
-    return decoder_forward(params, tokens, xa, dims, fcfg, train)
+    draws = _training_draws(fcfg, dims, train, draws, generator, mel.device)
+    xa = encoder_forward(params, mel, dims, fcfg, train, draws)
+    return decoder_forward(params, tokens, xa, dims, fcfg, train, draws)

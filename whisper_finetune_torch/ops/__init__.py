@@ -1,6 +1,11 @@
 # ``attention`` (the dispatcher) stays in its module: exporting it here would
 # shadow the submodule ``whisper_finetune_torch.ops.attention``.
-from whisper_finetune_torch.ops.attention import splash_mha, xla_mha
+from whisper_finetune_torch.ops.attention import (
+    flash_fwd_xla_bwd,
+    flash_mha,
+    splash_mha,
+    xla_mha,
+)
 from whisper_finetune_torch.ops.mel import (
     CHUNK_LENGTH,
     FRAMES_PER_SECOND,
@@ -33,6 +38,8 @@ __all__ = [
     "crop_and_min_pad",
     "extremes_freq_mask",
     "featurize_impl",
+    "flash_fwd_xla_bwd",
+    "flash_mha",
     "log_mel_spectrogram",
     "mel_filterbank",
     "splash_mha",

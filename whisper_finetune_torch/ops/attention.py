@@ -1,19 +1,27 @@
 """Attention for the transformer, the port of ``whisper_finetune_tpu/ops/attention.py``.
 
-Two implementations, picked per call site by :func:`attention`:
+Four implementations, picked per call site by :func:`attention`:
 
 * ``"xla"``: :func:`xla_mha`, the reference-faithful plain path. q and k are
   each scaled by ``sm_scale**0.5``, the scores are stored in the compute
   dtype, the softmax runs in float32 and the probabilities are cast back.
-  The decoder's causal self-attention always takes this path, as in JAX.
 * ``"splash"``: :func:`splash_mha`, the port of the TPU's splash-attention
   kernels (``ops/attention.py:236 splash_mha``, built by ``_splash_kernel``,
-  variant ``fused_bwd``): one ``torch.autograd.Function`` whose forward and
-  backward are the three CUDA kernels of ``csrc/attention.cu``:
+  variant ``fused_bwd``).
+* ``"flash"``: :func:`flash_mha`, the port of the TPU's flash-attention
+  kernels (``ops/attention.py:53 flash_mha``: the library's forward, dK/dV
+  and dQ ``pallas_call``s).
+* ``"flash_fwd"``: :func:`flash_fwd_xla_bwd` (``ops/attention.py:290``): the
+  flash forward without its row statistics, and a backward that
+  differentiates :func:`xla_mha` on the saved q, k, v.
+
+The TPU's splash and flash kernels compute one function, so here they are
+one ``torch.autograd.Function`` over the three CUDA kernels of
+``csrc/attention.cu``:
 
   - ``attn_fwd``: flash-style forward, one block per (batch*head, 64-row
-    q-tile), online softmax in float32, writes O (bf16) and the per-row
-    log-sum-exp (float32);
+    q-tile), online softmax in float32, writes O (bf16) and, unless the
+    caller asks for none, the per-row log-sum-exp (float32);
   - ``attn_bwd_dq``: one block per (batch*head, q-tile); computes
     ``delta = rowsum(dO * O)`` for its rows (and writes it for the next
     kernel), then loops over the key tiles accumulating dQ in float32 with
@@ -24,26 +32,28 @@ Two implementations, picked per call site by :func:`attention`:
 
   What bounds them on an H100: tensor-core operations (4*B*H*Tq*Tk*64 FLOP
   forward; 6x and 8x B*H*Tq*Tk*64 for the two backward kernels, which each
-  rebuild P) against 989 TFLOP/s bf16; the bytes are a few percent of that.
+  rebuild P; about half of each under a causal mask, whose masked tiles are
+  skipped) against 989 TFLOP/s bf16; the bytes are a few percent of that.
   The design keeps every (64 x 64) score tile in registers, so nothing of
   size Tq*Tk touches device memory, and masks Tq and Tk inside the kernels,
   so 1500 and 448 need no padding to 128 and there are no garbage rows
-  (splash pads and points padded query rows at key 0). The products are
-  ``mma.sync`` m16n8k16 bf16 with float32 accumulators and no software
-  pipelining; ``wgmma``/TMA come later.
+  (splash pads and points padded query rows at key 0; flash pads and masks
+  by segment ids). The products are ``mma.sync`` m16n8k16 bf16 with float32
+  accumulators and no software pipelining; ``wgmma``/TMA come later.
 
-  q is pre-scaled by ``sm_scale`` as splash does (0.125 is exact in bf16);
-  the kernels apply it to the float32 scores, which is the same number.
+  The wrappers take q unscaled and hand ``sm_scale`` to the kernels, which
+  apply it to the float32 scores: flash's own arithmetic, and the same
+  number as splash's pre-scaled q (0.125 is exact in bf16).
 
-Each kernel wrapper has its plain twin here (``*_plain``: splash's math in
-float32, outputs in the input dtype). A wrapper takes its twin only for a CPU
-tensor; for a CUDA tensor it launches its kernel or raises.
+Each kernel wrapper has its plain twin here (``*_plain``: the kernels' math
+in float32, outputs in the input dtype). A wrapper takes its twin only for a
+CPU tensor; for a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -85,6 +95,13 @@ def attn_fwd_plain(q, k, v, causal: bool, sm_scale: float):
     lse = torch.logsumexp(s, dim=-1)
     o = torch.matmul(torch.exp(s - lse[..., None]), v.float())
     return o.to(q.dtype), lse
+
+
+def attn_fwd_nolse_plain(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor:
+    """Plain twin of ``attn_fwd(..., with_lse=False)``: o only, as a plain
+    float32 softmax."""
+    p = torch.softmax(_scores(q, k, causal, sm_scale), dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)
 
 
 def attn_bwd_dq_plain(q, k, v, o, do, lse, causal: bool, sm_scale: float):
@@ -176,20 +193,25 @@ def _dims(q, k, sm_scale, causal):
 
 
 def attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+             causal: bool, sm_scale: float, with_lse: bool = True
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Forward kernel: -> (o (B, H, Tq, 64) bf16 with q's strides,
-    lse (B, H, Tq) float32)."""
+    lse (B, H, Tq) float32). With ``with_lse=False`` the kernel instance
+    that writes no log-sum-exp runs and lse is None."""
     if q.device.type == "cpu":
-        return attn_fwd_plain(q, k, v, causal, sm_scale)
+        if with_lse:
+            return attn_fwd_plain(q, k, v, causal, sm_scale)
+        return attn_fwd_nolse_plain(q, k, v, causal, sm_scale), None
     from whisper_finetune_torch._build import check, stream_ptr
 
     q, k, v = _prep(q, k, v)
     B, H, Tq, _ = q.shape
     o = torch.empty_like(q)
-    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = _lib()
     rc = lib.wft_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          o.data_ptr(), lse.data_ptr(),
+                          o.data_ptr(), lse.data_ptr() if with_lse else None,
                           *_dims(q, k, sm_scale, causal), stream_ptr())
     check(lib, rc, "attn_fwd")
     attn_fwd.launches += 1
@@ -247,7 +269,7 @@ def attn_bwd_dkdv(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
 attn_bwd_dkdv.launches = 0
 
 
-class _SplashAttention(torch.autograd.Function):
+class _KernelAttention(torch.autograd.Function):
     """Forward and backward are the kernels (their plain twins on the CPU);
     saves q, k, v, o and the (B, H, Tq) log-sum-exp. Each kernel wrapper
     lays out its own inputs; the model's q, k, v views already have the
@@ -268,13 +290,57 @@ class _SplashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class _KernelForwardPlainBackward(torch.autograd.Function):
+    """The forward kernel without its log-sum-exp; saves only q, k, v, and
+    the backward is autograd's gradient of :func:`xla_mha` on them
+    (``_ffxb_bwd``). The two directions scale differently, as in JAX: the
+    forward scales the float32 scores by ``sm_scale``, the backward's
+    ``xla_mha`` scales q and k by ``sm_scale**0.5`` each in their dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        o, _ = attn_fwd(q, k, v, causal, sm_scale, with_lse=False)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            o = xla_mha(q, k, v, causal=ctx.causal, sm_scale=ctx.sm_scale)
+        dq, dk, dv = torch.autograd.grad(o, (q, k, v), do.to(o.dtype))
+        return dq, dk, dv, None, None
+
+
+def _check_device(name: str, q: torch.Tensor) -> None:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+
+
 def splash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                causal: bool = False, sm_scale: float = 1.0) -> torch.Tensor:
     """q (B, H, Tq, 64), k/v (B, H, Tk, 64) -> (B, H, Tq, 64). CUDA: the
     kernels (bf16 only). CPU: their plain twins, any float dtype."""
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"splash_mha: unsupported device {q.device}")
-    return _SplashAttention.apply(q, k, v, causal, sm_scale)
+    _check_device("splash_mha", q)
+    return _KernelAttention.apply(q, k, v, causal, sm_scale)
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = False, sm_scale: float = 1.0) -> torch.Tensor:
+    """The flash route: the same kernels and shapes as :func:`splash_mha`,
+    forward and backward (the TPU's two kernel families compute one
+    function; see the module docstring)."""
+    _check_device("flash_mha", q)
+    return _KernelAttention.apply(q, k, v, causal, sm_scale)
+
+
+def flash_fwd_xla_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = False, sm_scale: float = 1.0) -> torch.Tensor:
+    """The forward kernel (no log-sum-exp written) with :func:`xla_mha`'s
+    gradients: no backward kernel launches on this route."""
+    _check_device("flash_fwd_xla_bwd", q)
+    return _KernelForwardPlainBackward.apply(q, k, v, causal, sm_scale)
 
 
 KERNELS = (attn_fwd, attn_bwd_dq, attn_bwd_dkdv)  # each carries a .launches count
@@ -287,8 +353,9 @@ KERNELS = (attn_fwd, attn_bwd_dq, attn_bwd_dkdv)  # each carries a .launches cou
 def resolve_auto_impls(device) -> dict:
     """ForwardConfig attention fields for ``attn_impl: auto``: on CUDA the
     kernels serve the encoder self-attention and the cross-attention, and
-    the decoder's causal self-attention stays plain, as in JAX; elsewhere
-    everything is plain."""
+    the decoder's causal self-attention stays plain, the JAX package's mix
+    (PERF.md has the card's own times for that site through the kernels);
+    elsewhere everything is plain."""
     if torch.device(device).type == "cuda":
         return {
             "attn_impl": "xla",
@@ -305,8 +372,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return xla_mha(q, k, v, causal=causal, sm_scale=sm_scale)
     if impl == "splash":
         return splash_mha(q, k, v, causal=causal, sm_scale=sm_scale)
-    if impl in ("flash", "flash_fwd"):
-        raise NotImplementedError(
-            f"attn_impl {impl!r} is not ported yet (ROADMAP queue 2, item 3)"
-        )
+    if impl == "flash":
+        return flash_mha(q, k, v, causal=causal, sm_scale=sm_scale)
+    if impl == "flash_fwd":
+        return flash_fwd_xla_bwd(q, k, v, causal=causal, sm_scale=sm_scale)
     raise ValueError(f"Unknown attention impl: {impl}")

@@ -1,4 +1,4 @@
-"""Blockwise 8-bit AdamW, the port of ``whisper_finetune_tpu/optim/quantized.py``.
+"""Blockwise 8-bit Adam / AdamW, the port of ``whisper_finetune_tpu/optim/quantized.py``.
 
 Both Adam moments of a leaf with at least ``MIN_QUANT_SIZE`` elements are
 stored in 256-element blocks: the first moment as int8 codes with a per-block
@@ -15,13 +15,19 @@ weight decay, learning rate, apply) for every leaf, IN PLACE: parameters and
 state buffers are overwritten. A quantized leaf whose size divides by 256
 goes to ``ops/fused_adamw8.py`` (the CUDA kernel on the card); the others take
 :func:`_leaf_plain`. The step count lives on the host as a Python int, so the
-bias corrections need no device sync.
+bias corrections need no device sync, and a learning-rate schedule is read
+there too: ``learning_rate(count)`` with the count of updates already applied.
+
+``adam_8bit`` is the coupled-L2 variant (``torch.optim.Adam`` semantics: the
+decay joins the gradient before the moments). With ``weight_decay=0`` it is
+the same update as AdamW and takes the same kernel; with a decay it runs
+leaf by leaf in plain PyTorch, since the kernel's decay is decoupled.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -110,17 +116,20 @@ def _zero_moment(p: torch.Tensor, log: bool) -> Moment:
 
 
 class AdamW8bit:
-    """Blockwise 8-bit AdamW (decoupled weight decay) over a list of leaves."""
+    """Blockwise 8-bit AdamW (decoupled weight decay) over a list of leaves;
+    with ``decoupled=False`` 8-bit Adam with coupled L2."""
 
-    def __init__(self, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, weight_decay: float = 1e-2):
-        if callable(learning_rate):
-            raise NotImplementedError(
-                "learning-rate schedules are not ported yet (ROADMAP queue 1, "
-                "item 7: optim/schedulers.py)"
-            )
-        self.learning_rate = float(learning_rate)
+    def __init__(self, learning_rate: Union[float, Callable[[int], float]],
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-2, decoupled: bool = True):
+        self.learning_rate = learning_rate
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+        self.decoupled = decoupled
+
+    def lr(self, count: int) -> float:
+        """The learning rate of the update that follows ``count`` updates."""
+        lr = self.learning_rate
+        return float(lr(count)) if callable(lr) else float(lr)
 
     def init(self, params: Sequence[torch.Tensor]) -> Adam8bitState:
         return Adam8bitState(
@@ -132,9 +141,14 @@ class AdamW8bit:
     def _leaf_plain(self, p, g, mu, nu, lr, c1, c2, g_scale):
         b1, b2 = self.b1, self.b2
         g32 = g.float() * g_scale
+        coupled = not self.decoupled and self.weight_decay != 0.0
+        if coupled:
+            g32 = g32 + self.weight_decay * p
         mu = b1 * mu + (1.0 - b1) * g32
         nu = b2 * nu + (1.0 - b2) * g32 * g32
         upd = _div(mu, c1) / (torch.sqrt(_div(nu, c2)) + self.eps)
+        if coupled:
+            return p - lr * upd, mu, nu
         return p - lr * (upd + self.weight_decay * p), mu, nu
 
     @torch.no_grad()
@@ -149,13 +163,14 @@ class AdamW8bit:
         f32 = np.float32
         c1 = float(f32(1.0) - f32(self.b1) ** f32(count))
         c2 = float(f32(1.0) - f32(self.b2) ** f32(count))
-        lr = float(f32(self.learning_rate))
+        lr = float(f32(self.lr(state.count)))
+        kernel_ok = self.decoupled or self.weight_decay == 0.0
         gs = (torch.ones((), dtype=torch.float32, device=params[0].device)
               if g_scale is None else g_scale.float())
         for i, (p, g) in enumerate(zip(params, grads)):
             mu_s, nu_s = state.mu[i], state.nu[i]
             quantized = isinstance(mu_s, QMoment)
-            if quantized and p.numel() % BLOCK == 0:
+            if kernel_ok and quantized and p.numel() % BLOCK == 0:
                 fused_adamw8_leaf(
                     p.view(-1, BLOCK), g.contiguous().view(-1, BLOCK),
                     mu_s.codes, mu_s.scale, nu_s.codes, nu_s.scale,
@@ -177,6 +192,11 @@ class AdamW8bit:
         return Adam8bitState(count, state.mu, state.nu)
 
 
-def adamw_8bit(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+def adamw_8bit(learning_rate, b1: float = 0.9, b2: float = 0.999,
                eps: float = 1e-8, weight_decay: float = 1e-2) -> AdamW8bit:
     return AdamW8bit(learning_rate, b1, b2, eps, weight_decay)
+
+
+def adam_8bit(learning_rate, b1: float = 0.9, b2: float = 0.999,
+              eps: float = 1e-8, weight_decay: float = 0.0) -> AdamW8bit:
+    return AdamW8bit(learning_rate, b1, b2, eps, weight_decay, decoupled=False)

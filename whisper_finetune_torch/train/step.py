@@ -3,33 +3,43 @@
 One optimizer step = ``accum`` microbatches, each contributing the
 label-smoothed cross entropy (``-100`` ignored), gradients summed in the
 accumulator dtype (bf16 on the main path), then ONE fused update: the mean
-divisor and the global-norm clip factor ride into the 8-bit AdamW kernels as
-a single float32 scalar (``reduce_sums``), so no mean/clip pass over the
-gradient tree exists.
+divisor and the global-norm clip factor ride into the optimizer's one-pass
+``fused_apply`` as a single float32 scalar (``reduce_sums``), so no mean/clip
+pass over the gradient tree exists. Any optimizer of ``optim/`` serves
+(8-bit or float32 Adam/AdamW, Muon with its auxiliary AdamW); its learning
+rate is ``base_lr * schedule(count)`` read from its own count of updates.
 
-This slice ports the single-device, non-split path with a
-``fused_apply`` optimizer. Frozen partitions (LoRA, train_only_*), the split
+Stochastic depth and deep SpecAugment draw all their random numbers for all
+microbatches of a step at once (``draw_forward``: one transfer to the host a
+step), before the first forward.
+
+This is the single-device, non-split path. Frozen partitions (LoRA, train_only_*), the split
 update, the manual backward, ZeRO-1, gradient histograms and data
 parallelism come later (ROADMAP queue 1, items 8, 12 and 13).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import torch
 
 from whisper_finetune_torch._device import resolve_device
 from whisper_finetune_torch.models.dims import ModelDimensions
-from whisper_finetune_torch.models.whisper import ForwardConfig, Whisper, forward_impl
-from whisper_finetune_torch.optim.quantized import Adam8bitState, AdamW8bit
+from whisper_finetune_torch.models.whisper import (
+    ForwardConfig,
+    ForwardDraws,
+    Whisper,
+    draw_forward,
+    forward_impl,
+)
 
 IGNORE_INDEX = -100
 
 
 class TrainState(NamedTuple):
     model: Whisper  # the parameters, updated in place by the step
-    opt_state: Adam8bitState
+    opt_state: Any  # the optimizer's own state; ``.count`` updates applied
     step: int
 
 
@@ -91,31 +101,34 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
 def make_train_step(
     dims: ModelDimensions,
     fcfg: ForwardConfig,
-    tx: AdamW8bit,
+    tx,
     label_smoothing: float = 0.0,
     feat_cfg=None,
     max_grad_norm: Optional[float] = None,
     accum_dtype: Optional[str] = None,
     device="cuda",
 ) -> Callable[..., tuple]:
-    """Build ``step(state, batch, generator=None) -> (state, loss)``.
+    """Build ``step(state, batch, generator=None, draws=None) -> (state, loss)``.
+    ``tx`` is any optimizer with ``init`` / ``fused_apply`` over the leaves of
+    ``Whisper.leaves()`` (``optim.get_optimizer``).
 
     Batch tensors are shaped ``(accum, B, ...)`` on ``device``: ``audio`` +
     ``crop_frames`` with ``feat_cfg`` (log-mel and SpecAugment run inside the
     step, their draws from ``generator``), else ``mel``; plus ``dec_input``
-    and ``dec_output``. The parameters and optimizer buffers update in place;
-    the returned loss is a 0-dim float32 tensor (reading it syncs)."""
+    and ``dec_output``. ``draws`` (one :class:`ForwardDraws` a microbatch)
+    replaces the stochastic-depth and deep-SpecAugment draws that the step
+    otherwise makes from ``generator``. The parameters and optimizer buffers
+    update in place; the returned loss is a 0-dim float32 tensor (reading it
+    syncs)."""
     resolve_device(device)
     fcfg.check_supported()
     if not hasattr(tx, "fused_apply"):
-        raise NotImplementedError(
-            "only optimizers with fused_apply are ported (ROADMAP queue 1, item 7)"
-        )
+        raise TypeError(f"{type(tx).__name__} has no fused_apply(grads, state, params, g_scale)")
     acc_dt = getattr(torch, accum_dtype) if accum_dtype else None
     data_keys = (("audio", "crop_frames", "dec_input", "dec_output")
                  if feat_cfg is not None else ("mel", "dec_input", "dec_output"))
 
-    def loss_fn(params, mb: Dict[str, torch.Tensor], generator):
+    def loss_fn(params, mb: Dict[str, torch.Tensor], generator, draws):
         if feat_cfg is not None:
             from whisper_finetune_torch.ops.spec_augment import featurize_impl
 
@@ -123,20 +136,31 @@ def make_train_step(
                                  feat_cfg, train=True)
         else:
             mel = mb["mel"]
-        logits = forward_impl(params, mel, mb["dec_input"], dims, fcfg, train=True)
+        logits = forward_impl(params, mel, mb["dec_input"], dims, fcfg, train=True,
+                              draws=draws)
         return cross_entropy_loss(logits, mb["dec_output"], label_smoothing)
 
-    def accumulate(params, leaves, batch, generator):
+    def accumulate(params, leaves, batch, generator, draws):
         """Per-microbatch backward; gradient sums in the accumulator dtype
         (each microbatch's gradients are float32 before the cast)."""
         accum = batch[data_keys[0]].shape[0]
+        if draws is None:
+            draws = (draw_forward(generator, dims, leaves[0].device, accum)
+                     if fcfg.needs_draws else [None] * accum)
+        elif len(draws) != accum:
+            raise ValueError(f"{len(draws)} draws for {accum} microbatches")
         grad_sum = None
         loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         for i in range(accum):
-            loss = loss_fn(params, {k: batch[k][i] for k in data_keys}, generator)
-            grads = list(torch.autograd.grad(loss, leaves))
+            loss = loss_fn(params, {k: batch[k][i] for k in data_keys}, generator, draws[i])
+            # A leaf no kept layer used (stochastic depth dropped them all)
+            # has no gradient: zeros, as in JAX.
+            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
             for j, g in enumerate(grads):
-                grads[j] = g.to(acc_dt) if acc_dt else g  # frees the fp32 copy
+                if g is None:
+                    grads[j] = torch.zeros_like(leaves[j], dtype=acc_dt)
+                else:
+                    grads[j] = g.to(acc_dt) if acc_dt else g  # frees the fp32 copy
             if grad_sum is None:
                 grad_sum = grads
             else:
@@ -158,9 +182,11 @@ def make_train_step(
         return scale * clip
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[Sequence[ForwardDraws]] = None):
         leaves = [p for _, p in state.model.leaves()]
-        grad_sum, accum, loss = accumulate(state.model.params(), leaves, batch, generator)
+        grad_sum, accum, loss = accumulate(state.model.params(), leaves, batch, generator,
+                                           draws)
         g_scale = reduce_sums(grad_sum, accum)
         opt_state = tx.fused_apply(grad_sum, state.opt_state, leaves, g_scale=g_scale)
         return TrainState(state.model, opt_state, state.step + 1), loss
