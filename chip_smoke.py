@@ -9,19 +9,26 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    the build of every ``whisper_finetune_torch/csrc/*.cu`` (all ``nvcc`` runs
    started together) with its seconds.
 2. Kernels against their plain PyTorch twins on the card, bf16 in, float32
-   math in the twin, at the main path's shapes: attention forward and both
-   backward kernels at (2, 20, 1500x1500), (2, 20, 448x1500) and causal
-   (2, 20, 448x448) plus ragged and small causal shapes, and the forward
-   instance that writes no log-sum-exp at the three main-path shapes; the fused 8-bit AdamW on (NB, 256) leaves with NB
+   math in the twin, at the main path's shapes: the attention forward and the
+   fused backward (dq, dk, dv) at (2, 20, 1500x1500), (2, 20, 448x1500) and
+   causal (2, 20, 448x448) plus ragged and small causal shapes, one with fewer
+   keys than a key tile, one with fewer queries than a query tile and one
+   causal over three key tiles, and the forward
+   instance that writes no log-sum-exp at the three main-path shapes; the
+   backward twice on the same inputs (dk and dv bit-equal, dq's largest
+   difference printed); the fused 8-bit AdamW on (NB, 256) leaves with NB
    divisible and not divisible by 128, three steps. Then each kernel's time
-   at the main path's shapes (CUDA events, median of repeats), its plain
-   twin's time, the PyTorch library call's time where one exists, and the
+   at the main path's shapes, its plain twin's time, the PyTorch library
+   call's time (``scaled_dot_product_attention`` and its backward), and the
    bound (the larger of bytes over 3.35 TB/s and operations over
    989 TFLOP/s bf16, from the shapes; under a causal mask only the unmasked
-   64 x 64 tiles' work counts); the two backward kernels also together,
-   against the bound of splash's fused backward; and the decoder's causal
-   self-attention forward + backward through the kernels against the plain
-   path (``xla_mha``) at (8, 20, 448x448).
+   64 x 64 tiles' work counts; the backward against the 10*B*H*Tq*Tk*64 FLOP
+   of splash's fused backward). The attention kernels and the library calls
+   are timed as device time under a captured CUDA graph, so that both columns
+   compare like with like at the small shapes too; the eager loop's time is
+   kept beside it. And the decoder's causal self-attention forward + backward
+   through the kernels against the plain path (``xla_mha``) at
+   (8, 20, 448x448).
 3. The first slice's path: full large-v3 (1.55 B parameters, random weights
    from a seed), batch 8 of synthetic 30 s audio, on-device log-mel +
    SpecAugment, full remat, bf16 compute, bf16 gradient accumulator, label
@@ -49,6 +56,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 
 ``--profile`` adds a ``torch.profiler`` window of two main-path steps: device
 time by kernel and group, and the device's busy share of the wall time.
+``--kernels-only`` stops after phase 2 (build, checks and kernel times): the
+same closing lines, with the attention kernels alone in ``kernels`` and their
+launch counts 0, since no leg ran.
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name/power-limit line, and as the last line
@@ -70,7 +80,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor cores, same source
 WARMUP_STEPS, TIMED_STEPS = 2, 5
-A_NAMES = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkdv")  # the attention kernels
+A_NAMES = ("attn_fwd", "attn_bwd")  # the attention kernels
 
 
 def log(msg: str) -> None:
@@ -102,6 +112,42 @@ def cuda_time_ms(fn, iters: int = 10, repeats: int = 3) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def graph_time_ms(make, iters: int = 10, repeats: int = 3) -> float:
+    """Device time of one ``fn()``, where ``fn = make()`` is built on the
+    capture stream (autograd runs a backward on the stream of its forward):
+    ``iters`` calls are captured into one CUDA graph (after a warm-up on that
+    stream, as capture asks) and the graph is replayed between two events, so
+    that no host time of the calls (Python, the autograd engine, a launch's
+    set-up) is inside the window. Median over ``repeats`` replays."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn = make()
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
     return statistics.median(times)
 
 
@@ -156,27 +202,30 @@ def _qkv(B, H, Tq, Tk, gen):
     return one(Tq), one(Tk), one(Tk)
 
 
+CHECK_SHAPES = (
+    (2, 20, 1500, 1500, False), (2, 20, 448, 1500, False), (2, 20, 448, 448, True),  # main path
+    (1, 3, 77, 131, False), (1, 3, 77, 77, True), (1, 2, 200, 200, True),
+    (1, 2, 130, 40, False),   # fewer keys than one key tile
+    (1, 2, 24, 150, False),   # fewer queries than one query tile
+    (2, 3, 300, 300, True),   # causal, three key tiles, Tq no multiple of a tile
+)
+
+
 def check_attention(gen) -> dict:
     import torch
     from whisper_finetune_torch.ops import attention as A
 
     scale = 64 ** -0.5
-    worst = {"attn_fwd": 0.0, "attn_bwd_dq": 0.0, "attn_bwd_dkdv": 0.0}
-    main_shapes = ((2, 20, 1500, 1500, False), (2, 20, 448, 1500, False),
-                   (2, 20, 448, 448, True))
-    for B, H, Tq, Tk, causal in (*main_shapes, (1, 3, 77, 131, False), (1, 3, 77, 77, True),
-                                 (1, 2, 200, 200, True)):
+    worst = {"attn_fwd": 0.0, "attn_bwd": 0.0}
+    for B, H, Tq, Tk, causal in CHECK_SHAPES:
         q, k, v = _qkv(B, H, Tq, Tk, gen)
         do = torch.randn((B, H, Tq, 64), generator=gen, device="cuda").to(torch.bfloat16)
         o, lse = A.attn_fwd(q, k, v, causal, scale)
-        dq, delta = A.attn_bwd_dq(q, k, v, o, do, lse, causal, scale)
-        dk, dv = A.attn_bwd_dkdv(q, k, v, do, lse, delta, causal, scale)
+        dq, dk, dv = A.attn_bwd(q, k, v, o, do, lse, causal, scale)
         torch.cuda.synchronize()
         o_r, lse_r = A.attn_fwd_plain(q.float(), k.float(), v.float(), causal, scale)
-        dq_r, delta_r = A.attn_bwd_dq_plain(q.float(), k.float(), v.float(), o_r,
+        dq_r, dk_r, dv_r = A.attn_bwd_plain(q.float(), k.float(), v.float(), o_r,
                                             do.float(), lse_r, causal, scale)
-        dk_r, dv_r = A.attn_bwd_dkdv_plain(q.float(), k.float(), v.float(), do.float(),
-                                           lse_r, delta_r, causal, scale)
         rows = []
         for name, kern, ref, tol in (
             ("o", o, o_r, ATTN_TOL_O), ("lse", lse, lse_r, None),
@@ -191,13 +240,12 @@ def check_attention(gen) -> dict:
                 raise AssertionError(
                     f"attention {B}x{H}x{Tq}x{Tk} causal={causal}: {name} max abs err "
                     f"{err} > {limit} (max|ref| {peak})")
-            kernel = {"o": "attn_fwd", "lse": "attn_fwd", "dq": "attn_bwd_dq",
-                      "dk": "attn_bwd_dkdv", "dv": "attn_bwd_dkdv"}[name]
+            kernel = "attn_fwd" if name in ("o", "lse") else "attn_bwd"
             worst[kernel] = max(worst[kernel], err)
         log(f"  attention {B}x{H}x{Tq}x{Tk} causal={int(causal)}: " + ", ".join(rows))
     # The forward instance that writes no log-sum-exp against its own twin.
     worst["attn_fwd_nolse"] = 0.0
-    for B, H, Tq, Tk, causal in main_shapes:
+    for B, H, Tq, Tk, causal in CHECK_SHAPES[:3]:
         q, k, v = _qkv(B, H, Tq, Tk, gen)
         o, lse = A.attn_fwd(q, k, v, causal, scale, with_lse=False)
         torch.cuda.synchronize()
@@ -210,6 +258,36 @@ def check_attention(gen) -> dict:
         log(f"  no-lse forward {B}x{H}x{Tq}x{Tk} causal={int(causal)}: o {err:.3e}/"
             f"{ATTN_TOL_O * peak:.3e}")
     return worst
+
+
+def check_bwd_repeatable(gen) -> dict:
+    """``attn_bwd`` twice on the same inputs at the three main-path shapes:
+    dk and dv are sums in a fixed order and must be bit-equal; dq is summed
+    over key tiles by bulk reductions (``cp.reduce.async.bulk``) in the order
+    the hardware picks, so its largest difference is reported (and held to
+    the gradients' limit)."""
+    import torch
+    from whisper_finetune_torch.ops import attention as A
+
+    scale = 64 ** -0.5
+    worst = 0.0
+    for B, H, Tq, Tk, causal in CHECK_SHAPES[:3]:
+        q, k, v = _qkv(B, H, Tq, Tk, gen)
+        do = _qkv(B, H, Tq, Tq, gen)[0]
+        o, lse = A.attn_fwd(q, k, v, causal, scale)
+        first = A.attn_bwd(q, k, v, o, do, lse, causal, scale)
+        second = A.attn_bwd(q, k, v, o, do, lse, causal, scale)
+        torch.cuda.synchronize()
+        if not (torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])):
+            raise AssertionError(f"attn_bwd {B}x{H}x{Tq}x{Tk}: dk or dv differ between two runs")
+        diff = (first[0].float() - second[0].float()).abs().max().item()
+        peak = first[0].float().abs().max().item()
+        if not diff <= ATTN_TOL_GRAD * peak:
+            raise AssertionError(f"attn_bwd {B}x{H}x{Tq}x{Tk}: dq differs by {diff} between two runs")
+        worst = max(worst, diff)
+        log(f"  attn_bwd twice {B}x{H}x{Tq}x{Tk} causal={int(causal)}: dk, dv bit-equal; "
+            f"dq max diff {diff:.3e} (peak {peak:.3e})")
+    return {"dq_max_diff": worst}
 
 
 def compare_adamw8(label, p, mc, ms, nc, ns, gen, out: dict) -> dict:
@@ -307,59 +385,56 @@ def time_attention(gen, site: str, B, H, Tq, Tk, causal: bool = False) -> dict:
     q, k, v = _qkv(B, H, Tq, Tk, gen)
     do = _qkv(B, H, Tq, Tq, gen)[0]  # the gradient of o, in o's layout
     o, lse = A.attn_fwd(q, k, v, causal, scale)
-    dq, delta = A.attn_bwd_dq(q, k, v, o, do, lse, causal, scale)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     o_r, lse_r = A.attn_fwd_plain(qf, kf, vf, causal, scale)
-    _, delta_r = A.attn_bwd_dq_plain(qf, kf, vf, o_r, dof, lse_r, causal, scale)
 
     def sdpa(*args):
         return F.scaled_dot_product_attention(*args, scale=scale, is_causal=causal)
+
+    def sdpa_backward():
+        """The library's fused backward (one call), the backward's
+        yardstick, on a forward made on the current stream."""
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        out = sdpa(qr, kr, vr)
+        return lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True)
 
     bhtd = B * H * _unmasked_pairs(Tq, Tk, causal) * 64
     row_q, row_k = B * H * Tq * 64 * 2, B * H * Tk * 64 * 2  # bf16 bytes
     vec = B * H * Tq * 4
     rec = {}
+    # attn_bwd is the function splash's fused backward computes: dq, dk, dv
+    # with S = QK^T, dP = dO V^T, dV, dQ, dK once each (10 BHTD); it reads q,
+    # k, v, o, do, lse and writes dq, dk, dv. Timed whole: prep + main + convert.
     kernels = {
         "attn_fwd": (lambda: A.attn_fwd(q, k, v, causal, scale),
                      lambda: A.attn_fwd_plain(qf, kf, vf, causal, scale),
-                     lambda: sdpa(q, k, v),
+                     lambda: (lambda: sdpa(q, k, v)),
                      row_q + 2 * row_k + row_q + vec, 4 * bhtd),
-        "attn_bwd_dq": (lambda: A.attn_bwd_dq(q, k, v, o, do, lse, causal, scale),
-                        lambda: A.attn_bwd_dq_plain(qf, kf, vf, o_r, dof, lse_r, causal, scale),
-                        None, 3 * row_q + 2 * row_k + vec + row_q + vec, 6 * bhtd),
-        "attn_bwd_dkdv": (lambda: A.attn_bwd_dkdv(q, k, v, do, lse, delta, causal, scale),
-                          lambda: A.attn_bwd_dkdv_plain(qf, kf, vf, dof, lse_r, delta_r, causal, scale),
-                          None, 2 * row_q + 2 * row_k + 2 * vec + 2 * row_k, 8 * bhtd),
+        "attn_bwd": (lambda: A.attn_bwd(q, k, v, o, do, lse, causal, scale),
+                     lambda: A.attn_bwd_plain(qf, kf, vf, o_r, dof, lse_r, causal, scale),
+                     sdpa_backward,
+                     3 * row_q + 2 * row_k + vec + row_q + 2 * row_k, 10 * bhtd),
     }
-    for name, (kern, plain, lib, n_bytes, flops) in kernels.items():
-        ms = cuda_time_ms(kern)
+    for name, (kern, plain, make_lib, n_bytes, flops) in kernels.items():
+        # Device time only (a captured graph): at the small shapes a call's
+        # host time is longer than its kernels.
+        ms = graph_time_ms(lambda: kern)
         b_ms, b_by = bound_ms(n_bytes, flops)
         rec[name] = {
             "site": site, "shape": [B, H, Tq, Tk, 64], "causal": causal, "ms": ms,
+            "eager_ms": cuda_time_ms(kern),
             "plain_ms": cuda_time_ms(plain, iters=3),
-            "library_ms": cuda_time_ms(lib) if lib is not None else None,
+            "library_ms": graph_time_ms(make_lib),
+            "library_eager_ms": cuda_time_ms(make_lib()),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "flops": flops,
             "tflops": flops / ms / 1e9,
         }
     # The forward instance without the log-sum-exp write (the flash_fwd
     # route) against its own twin; same operations, (B, H, Tq) floats fewer.
-    rec["attn_fwd"]["nolse_ms"] = cuda_time_ms(
-        lambda: A.attn_fwd(q, k, v, causal, scale, with_lse=False))
+    rec["attn_fwd"]["nolse_ms"] = graph_time_ms(
+        lambda: (lambda: A.attn_fwd(q, k, v, causal, scale, with_lse=False)))
     rec["attn_fwd"]["nolse_plain_ms"] = cuda_time_ms(
         lambda: A.attn_fwd_nolse_plain(qf, kf, vf, causal, scale), iters=3)
-    # The two backward kernels together against the bound of the function
-    # splash's fused backward computes: dq, dk, dv with S = QK^T, dP = dO V^T,
-    # dV, dQ, dK once each (10 BHTD); the split design redoes S and dP (14).
-    # The library's fused backward (one call) is the yardstick.
-    b_ms, b_by = bound_ms(3 * row_q + 2 * row_k + vec + row_q + 2 * row_k, 10 * bhtd)
-    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
-    out = sdpa(qr, kr, vr)
-    rec["bwd"] = {
-        "ms": rec["attn_bwd_dq"]["ms"] + rec["attn_bwd_dkdv"]["ms"],
-        "bound_ms": b_ms, "bound_by": b_by, "flops": 10 * bhtd,
-        "library_ms": cuda_time_ms(
-            lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True)),
-    }
     return rec
 
 
@@ -487,8 +562,7 @@ def main_path() -> dict:
     sites = dims.n_audio_layer + dims.n_text_layer  # encoder self + cross
     expect = {
         "attn_fwd": 2 * sites * n_steps,         # forward + remat recompute
-        "attn_bwd_dq": sites * n_steps,
-        "attn_bwd_dkdv": sites * n_steps,
+        "attn_bwd": sites * n_steps,
         "fused_adamw8_leaf": fused_leaves * n_steps,
     }
     if launches != expect:
@@ -627,7 +701,7 @@ def flagship_leg(name: str, attn_impl: str, layers, accum, steps: int, warmup: i
                  + dec_blocks * ((fcfg.dec_attn in ("splash", "flash"))
                                  + (fcfg.cross_attn in ("splash", "flash"))))
     expect = {"attn_fwd": 2 * sites,  # forward + remat recompute of every kept block
-              "attn_bwd_dq": bwd_sites, "attn_bwd_dkdv": bwd_sites,
+              "attn_bwd": bwd_sites,
               "fused_adamw8_leaf": aux_fused * n_steps}
     if launches != expect:
         raise AssertionError(f"[{name}] launch counts {launches} != expected {expect} "
@@ -727,6 +801,57 @@ def profile_steps(step, state, batch, gen, n_steps: int = 2) -> dict:
                      "calls_per_step": e.count / n_steps} for e in top]}
 
 
+def attention_entries(enc, cross, dec_self, attn_err, repeatable, by_leg, per_step) -> list:
+    """The ``kernels`` entries of ``attn_fwd`` and ``attn_bwd``: the encoder
+    site's numbers at the top level, the other two sites under their names.
+    ``by_leg`` maps a leg to its launch counts; it is empty when no leg ran."""
+    tpu = "whisper_finetune_tpu/ops/attention.py"
+    sources = {
+        "attn_fwd": f"{tpu}:236 (splash_mha forward); {tpu}:53 (flash_mha forward); "
+                    f"{tpu}:290 (flash_fwd_xla_bwd: the forward without residuals)",
+        "attn_bwd": f"{tpu}:236 (splash_mha fused_bwd: dq and dk/dv); "
+                    f"{tpu}:53 (flash_mha dK/dV and dQ kernels)",
+    }
+    routes = {"attn_fwd": ["splash", "flash", "flash_fwd"], "attn_bwd": ["splash", "flash"]}
+    site_keys = ("shape", "causal", "ms", "eager_ms", "plain_ms", "library_ms",
+                 "library_eager_ms", "bound_ms", "bound_by")
+    entries = []
+    for name in A_NAMES:
+        r = enc[name]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "whisper_finetune_torch/csrc/attention.cu",
+            "replaces": sources[name], "attn_impls": routes[name],
+            "launches": sum(leg[name] for leg in by_leg.values()),
+            "launches_by_leg": {k: leg[name] for k, leg in by_leg.items()},
+            "max_abs_err": attn_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "launches_per_step": per_step.get(name, 0),
+            "shape": r["shape"],
+            **{site: {k: rec[name][k] for k in site_keys}
+               for site, rec in (("cross", cross), ("decoder_self", dec_self))},
+        }
+        if name == "attn_fwd":
+            entry["no_lse"] = {"max_abs_err": attn_err["attn_fwd_nolse"], **{
+                site: {"ms": rec[name]["nolse_ms"], "plain_ms": rec[name]["nolse_plain_ms"]}
+                for site, rec in (("encoder", enc), ("cross", cross), ("decoder_self", dec_self))}}
+        else:
+            entry["dq_max_diff_between_runs"] = repeatable["dq_max_diff"]
+        entries.append(entry)
+    return entries
+
+
+def print_result(kernels: list) -> None:
+    """The last three lines of the output."""
+    import torch
+
+    print(json.dumps({"kernels": kernels}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
 def main() -> int:
     try:
         import torch
@@ -750,13 +875,14 @@ def main() -> int:
     libs = _build.libraries(verbose_ptxas=True)
     log(f"kernels built in {libs.build_seconds:.1f} s")
     for line in libs.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(w in line for w in ("registers", "spill", "arning", "wgmma")) or line.startswith("=="):
             log("  " + line.strip())
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     log("kernels vs plain twins:")
     attn_err = check_attention(gen)
+    repeatable = check_bwd_repeatable(gen)
     adam = check_adamw8(gen)
     log("timing at main-path shapes:")
     enc = time_attention(gen, "encoder self-attention", 8, 20, 1500, 1500)
@@ -767,18 +893,19 @@ def main() -> int:
     for site in (enc, cross, dec_self):
         for name in A_NAMES:
             r = site[name]
-            log(f"  {name} [{r['site']}]: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
-                f"library {r['library_ms']}, bound {r['bound_ms']:.3f} by {r['bound_by']}, "
-                f"{r['tflops']:.1f} TFLOP/s)")
-        bwd = site["bwd"]
-        log(f"  backward dq+dkdv [{site[A_NAMES[0]]['site']}]: {bwd['ms']:.3f} ms (fused "
-            f"bound {bwd['bound_ms']:.3f} by {bwd['bound_by']}, library "
-            f"{bwd['library_ms']:.3f})")
+            log(f"  {name} [{r['site']}]: {r['ms']:.3f} ms device time (eager loop "
+                f"{r['eager_ms']:.3f}; plain {r['plain_ms']:.3f}; library {r['library_ms']:.3f}, "
+                f"eager {r['library_eager_ms']:.3f}; bound {r['bound_ms']:.3f} by "
+                f"{r['bound_by']}; {r['tflops']:.1f} TFLOP/s)")
         log(f"  attn_fwd without lse [{site[A_NAMES[0]]['site']}]: "
             f"{site['attn_fwd']['nolse_ms']:.3f} ms (plain {site['attn_fwd']['nolse_plain_ms']:.3f})")
     log(f"  decoder self-attention 8x20x448x448 causal, forward+backward: kernels "
         f"{dec_route['kernels']['fwd_bwd_ms']:.3f} ms, plain path {dec_route['plain']['fwd_bwd_ms']:.3f} ms; "
         f"forward alone {dec_route['kernels']['fwd_ms']:.3f} / {dec_route['plain']['fwd_ms']:.3f} ms")
+
+    if "--kernels-only" in sys.argv[1:]:
+        print_result(attention_entries(enc, cross, dec_self, attn_err, repeatable, {}, {}))
+        return 0
 
     log("main path:")
     main_rec, state, step, batch, step_gen = main_path()
@@ -820,43 +947,7 @@ def main() -> int:
 
     per_step = main_rec["launches_per_step"]
     by_leg = {"splash_adamw8": main_rec["launches"], **{k: v["launches"] for k, v in legs.items()}}
-    tpu = "whisper_finetune_tpu/ops/attention.py"
-    sources = {
-        "attn_fwd": f"{tpu}:236 (splash_mha forward); {tpu}:53 (flash_mha forward); "
-                    f"{tpu}:290 (flash_fwd_xla_bwd: the forward without residuals)",
-        "attn_bwd_dq": f"{tpu}:236 (splash_mha fused_bwd, dq); {tpu}:53 (flash_mha dQ kernel)",
-        "attn_bwd_dkdv": f"{tpu}:236 (splash_mha fused_bwd, dk/dv); {tpu}:53 (flash_mha dK/dV kernel)",
-    }
-    routes = {"attn_fwd": ["splash", "flash", "flash_fwd"], "attn_bwd_dq": ["splash", "flash"],
-              "attn_bwd_dkdv": ["splash", "flash"]}
-    kernels = []
-    for name in A_NAMES:
-        r = enc[name]
-        entry = {
-            "name": name, "route": "cuda",
-            "source": "whisper_finetune_torch/csrc/attention.cu",
-            "replaces": sources[name], "attn_impls": routes[name],
-            "launches": sum(leg[name] for leg in by_leg.values()),
-            "launches_by_leg": {k: leg[name] for k, leg in by_leg.items()},
-            "max_abs_err": attn_err[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "launches_per_step": per_step[name],
-            "shape": r["shape"],
-            **{site: {k: rec[name][k] for k in ("shape", "causal", "ms", "plain_ms", "library_ms",
-                                                "bound_ms", "bound_by")}
-               for site, rec in (("cross", cross), ("decoder_self", dec_self))},
-        }
-        if name == "attn_fwd":
-            entry["no_lse"] = {"max_abs_err": attn_err["attn_fwd_nolse"], **{
-                site: {"ms": rec[name]["nolse_ms"], "plain_ms": rec[name]["nolse_plain_ms"]}
-                for site, rec in (("encoder", enc), ("cross", cross), ("decoder_self", dec_self))}}
-        if name != "attn_fwd":
-            # dq and dk/dv together against the fused backward's bound
-            entry["bwd_dq_plus_dkdv"] = {
-                site: {k: rec["bwd"][k] for k in ("ms", "bound_ms", "library_ms")}
-                for site, rec in (("encoder", enc), ("cross", cross),
-                                  ("decoder_self", dec_self))}
-        kernels.append(entry)
+    kernels = attention_entries(enc, cross, dec_self, attn_err, repeatable, by_leg, per_step)
     kernels.append({
         "name": "fused_adamw8", "route": "cuda",
         "source": "whisper_finetune_torch/csrc/fused_adamw8.cu",
@@ -874,16 +965,13 @@ def main() -> int:
               "build_s": libs.build_seconds, "kernels": kernels, "attention_timing":
               {"encoder": enc, "cross": cross, "decoder_self": dec_self,
                "decoder_self_routes": dec_route}, "adamw8_timing": adam_t,
-              "adamw8_check": adam, "main_path": main_rec, "flagship_legs": legs}
+              "adamw8_check": adam, "attn_bwd_repeatable": repeatable,
+              "main_path": main_rec, "flagship_legs": legs}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
 
-    print(json.dumps({"kernels": kernels}))
-    print(smi_line())
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    print_result(kernels)
     return 0
 
 

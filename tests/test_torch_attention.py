@@ -78,7 +78,7 @@ def test_xla_mha_matches_jax(dtype, causal):
 
 
 def test_plain_twins_compose_to_autograd():
-    """The backward twins give autograd's gradients of the forward twin,
+    """The backward twin gives autograd's gradients of the forward twin,
     and the forward twin's lse is the row log-sum-exp."""
     q, k, v = (_t(x, True) for x in _qkv(33, 70, seed=4))
     do = _t(np.random.default_rng(5).standard_normal((2, 2, 33, 16)).astype(np.float32))
@@ -88,8 +88,7 @@ def test_plain_twins_compose_to_autograd():
     torch.testing.assert_close(lse, ref_lse)
     gq, gk, gv = torch.autograd.grad(o, (q, k, v), do)
     with torch.no_grad():
-        dq, delta = A.attn_bwd_dq(q, k, v, o, do, lse, False, scale)
-        dk, dv = A.attn_bwd_dkdv(q, k, v, do, lse, delta, False, scale)
+        dq, dk, dv = A.attn_bwd(q, k, v, o, do, lse, False, scale)
     for a, b in ((dq, gq), (dk, gk), (dv, gv)):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
@@ -113,7 +112,74 @@ def test_cpu_path_counts_no_launch():
         fn.launches = 0
     q, k, v = (_t(x, True) for x in _qkv(8, 8))
     A.splash_mha(q, k, v).sum().backward()
-    assert [fn.launches for fn in A.KERNELS] == [0, 0, 0]
+    assert [fn.__name__ for fn in A.KERNELS] == ["attn_fwd", "attn_bwd"]
+    assert [fn.launches for fn in A.KERNELS] == [0, 0]
+
+
+# ragged, fewer keys than queries, causal (square and ragged)
+BWD_CASES = [(33, 70, False), (77, 131, False), (130, 40, False), (64, 64, True),
+             (77, 77, True), (200, 200, True)]
+
+
+@pytest.mark.parametrize("Tq,Tk,causal", BWD_CASES)
+def test_attn_bwd_plain_matches_autograd_of_forward_twin(Tq, Tk, causal):
+    q, k, v = (_t(x, True) for x in _qkv(Tq, Tk, seed=13))
+    do = _t(np.random.default_rng(14).standard_normal((2, 2, Tq, 16)).astype(np.float32))
+    o, lse = A.attn_fwd_plain(q, k, v, causal, 0.25)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    with torch.no_grad():
+        got = A.attn_bwd_plain(q, k, v, o, do, lse, causal, 0.25)
+        same = A.attn_bwd(q, k, v, o, do, lse, causal, 0.25)  # CPU tensors: the twin
+    for a, b, c in zip(got, want, same):
+        # float32 on both sides; autograd sums in another order
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+        assert torch.equal(a, c)
+
+
+def test_backward_calls_attn_bwd_once(monkeypatch):
+    """``_KernelAttention.backward`` is one ``attn_bwd`` call with the saved
+    q, k, v, o, lse and the incoming gradient."""
+    calls = []
+    real = A.attn_bwd
+
+    def counting(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(A, "attn_bwd", counting)
+    q, k, v = (_t(x, True) for x in _qkv(12, 20, seed=15))
+    out = A.flash_mha(q, k, v, causal=False, sm_scale=0.25)
+    assert calls == []
+    out.sum().backward()
+    assert len(calls) == 1
+    assert len(calls[0]) == 8 and calls[0][6:] == (False, 0.25)
+    assert calls[0][3].shape == out.shape and calls[0][5].shape == out.shape[:3]
+
+
+def test_backward_inputs_are_laid_out_once(monkeypatch):
+    """The backward's inputs take the kernels' layout in one place: the
+    model's (B, T, H, 64) views pass through untouched, and a gradient that
+    arrives in another layout (or dtype) is copied exactly once."""
+    copies = []
+    real = A._as_layout
+
+    def recording(x, ref):
+        out = real(x, ref)
+        copies.append(out is not x)
+        return out
+
+    monkeypatch.setattr(A, "_as_layout", recording)
+
+    def heads(T):  # the model's layout
+        return torch.zeros((2, T, 3, 64), dtype=torch.bfloat16).transpose(1, 2)
+
+    q, k, v, o = heads(10), heads(14), heads(14), heads(10)
+    do = torch.ones((2, 3, 10, 64))  # contiguous float32: the wrong layout and dtype
+    lq, lk, lv, lo, ldo = A._bwd_layout(q, k, v, o, do)
+    assert (lq is q) and (lk is k) and (lv is v) and (lo is o)
+    assert ldo.dtype == torch.bfloat16 and ldo.stride() == q.stride()
+    assert torch.equal(ldo.float(), do)
+    assert copies == [False, False, True]  # v, o untouched; do copied once
 
 
 # ragged (no multiple of 64 or 128), causal and not, square and cross shapes
@@ -207,3 +273,19 @@ def test_flash_wrappers_refuse_other_devices(fn):
     q = torch.empty((1, 1, 4, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         getattr(A, fn)(q, q, q)
+
+
+def test_attn_bwd_variants_edits_find_their_statements():
+    """The timing tool's wrong-on-purpose variants of ``attention.cu`` are made
+    by text edits: each must still find its statement exactly once, and every
+    variant's source must differ from the kernel as built."""
+    from whisper_finetune_torch import _build
+    from whisper_finetune_torch.tools import attn_bwd_variants as V
+
+    source = (_build.CSRC / "attention.cu").read_text()
+    texts = V.variant_sources(source)
+    assert set(texts) == set(V.VARIANTS)
+    assert texts["as_built"] == source
+    assert len(set(texts.values())) == len(texts)
+    with pytest.raises(RuntimeError, match="not once"):
+        V.variant_sources(source.replace(V.REDUCE_CALL, ""))

@@ -66,6 +66,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def nvcc_command(src: Path, out: Path) -> list:
+    """The command that compiles one kernel source into the library ``out``."""
+    return [_nvcc(), *_flags(src), "-I", str(CSRC), "-o", str(out), str(src)]
+
+
 def _digest(src: Path) -> str:
     h = hashlib.sha256()
     h.update(" ".join(_flags(src)).encode())
@@ -85,8 +90,7 @@ def build_all(verbose_ptxas: bool = False) -> KernelLibraries:
         proc = None
         if not out.exists():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *_flags(src), "-I", str(CSRC), "-o", str(tmp),
-                   str(src)]
+            cmd = nvcc_command(src, tmp)
             if verbose_ptxas:
                 cmd.insert(1, "-Xptxas=-v")
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,

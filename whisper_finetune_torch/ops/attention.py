@@ -16,30 +16,39 @@ Four implementations, picked per call site by :func:`attention`:
   differentiates :func:`xla_mha` on the saved q, k, v.
 
 The TPU's splash and flash kernels compute one function, so here they are
-one ``torch.autograd.Function`` over the three CUDA kernels of
+one ``torch.autograd.Function`` over the two kernel wrappers of
 ``csrc/attention.cu``:
 
   - ``attn_fwd``: flash-style forward, one block per (batch*head, 64-row
     q-tile), online softmax in float32, writes O (bf16) and, unless the
-    caller asks for none, the per-row log-sum-exp (float32);
-  - ``attn_bwd_dq``: one block per (batch*head, q-tile); computes
-    ``delta = rowsum(dO * O)`` for its rows (and writes it for the next
-    kernel), then loops over the key tiles accumulating dQ in float32 with
-    no atomics;
-  - ``attn_bwd_dkdv``: one block per (batch*head, 64-key tile); loops over
-    the q-tiles rebuilding P from the saved log-sum-exp and accumulates dK
-    and dV in float32.
+    caller asks for none, the per-row log-sum-exp (float32). ``mma.sync``
+    from padded shared memory, no software pipelining yet.
+  - ``attn_bwd``: the whole backward, (dq, dk, dv) from (q, k, v, o, do,
+    lse), what splash's ``fused_bwd`` and flash's dK/dV + dQ kernels compute.
+    Three launches on one stream: the row statistics (``lse * log2(e)`` and
+    ``delta = rowsum(dO * O)``) with the zeroing of a float32 dQ accumulator;
+    the fused kernel, one warpgroup per (batch*head, 64-key tile) and three
+    blocks an SM, that keeps K and V in shared memory, streams (Q, dO, lse,
+    delta) tiles through a ring of ``cp.async`` stages one tile ahead of the
+    products, builds S and dP once per tile pair by ``wgmma``, keeps dK and
+    dV in registers and adds each tile's share of dQ to the accumulator with
+    one bulk float32 reduction from shared memory; and the conversion of the
+    accumulator to bf16 dq. dK and dV are deterministic; dQ is summed over
+    key tiles in the order the hardware picks, so two runs may differ in the
+    last float32 bits before the rounding to bf16.
 
-  What bounds them on an H100: tensor-core operations (4*B*H*Tq*Tk*64 FLOP
-  forward; 6x and 8x B*H*Tq*Tk*64 for the two backward kernels, which each
-  rebuild P; about half of each under a causal mask, whose masked tiles are
-  skipped) against 989 TFLOP/s bf16; the bytes are a few percent of that.
-  The design keeps every (64 x 64) score tile in registers, so nothing of
-  size Tq*Tk touches device memory, and masks Tq and Tk inside the kernels,
-  so 1500 and 448 need no padding to 128 and there are no garbage rows
-  (splash pads and points padded query rows at key 0; flash pads and masks
-  by segment ids). The products are ``mma.sync`` m16n8k16 bf16 with float32
-  accumulators and no software pipelining; ``wgmma``/TMA come later.
+  What bounds them on an H100 depends on the shape. With
+  F = B*H*Tq*Tk*64 (under a causal mask only the tiles at or below the
+  diagonal, the rest are skipped) the forward does 4F FLOP and the backward
+  10F against 989 TFLOP/s bf16; the bytes are q, k, v, o, do and the
+  gradients once each against 3.35 TB/s. At the encoder's 1500 x 1500 and
+  the cross-attention's 448 x 1500 (batch 8, 20 heads) the operations are
+  the larger time, the bytes a quarter to a half of it; at the decoder's
+  causal 448 x 448 the bytes are the bound, by a factor of two. Nothing of
+  size Tq*Tk touches device memory: every score tile lives in registers.
+  Tq and Tk are masked inside the kernels, so 1500 and 448 need no padding
+  to 128 and there are no garbage rows (splash pads and points padded query
+  rows at key 0; flash pads and masks by segment ids).
 
   The wrappers take q unscaled and hand ``sm_scale`` to the kernels, which
   apply it to the float32 scores: flash's own arithmetic, and the same
@@ -104,44 +113,39 @@ def attn_fwd_nolse_plain(q, k, v, causal: bool, sm_scale: float) -> torch.Tensor
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
-def attn_bwd_dq_plain(q, k, v, o, do, lse, causal: bool, sm_scale: float):
-    """Plain twin of ``attn_bwd_dq``: (dq in q's dtype, delta float32)."""
+def attn_bwd_plain(q, k, v, o, do, lse, causal: bool, sm_scale: float):
+    """Plain twin of ``attn_bwd``: (dq in q's dtype, dk and dv in k's), the
+    kernel's math in float32 with P rebuilt from the saved log-sum-exp."""
     delta = (do.float() * o.float()).sum(-1)
     p = torch.exp(_scores(q, k, causal, sm_scale) - lse[..., None])
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
     ds = p * (dp - delta[..., None])
     dq = torch.matmul(ds, k.float()) * sm_scale
-    return dq.to(q.dtype), delta
-
-
-def attn_bwd_dkdv_plain(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
-    """Plain twin of ``attn_bwd_dkdv``: (dk, dv) in k's dtype."""
-    p = torch.exp(_scores(q, k, causal, sm_scale) - lse[..., None])
-    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
-    ds = p * (dp - delta[..., None])
     dk = torch.matmul(ds.transpose(-1, -2), q.float()) * sm_scale
     dv = torch.matmul(p.transpose(-1, -2), do.float())
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _lib():
-    from whisper_finetune_torch._build import libraries
-
-    lib = libraries()["attention"]
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries of a library built from ``csrc/attention.cu``."""
     if not getattr(lib, "_wft_bound", False):
         P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         dims = [I, I, I, I, L, L, L, L, L, L, F, I, P]
         lib.wft_attn_fwd.argtypes = [P] * 5 + dims
-        lib.wft_attn_bwd_dq.argtypes = [P] * 8 + dims
-        lib.wft_attn_bwd_dkdv.argtypes = [P] * 8 + dims
-        for fn in (lib.wft_attn_fwd, lib.wft_attn_bwd_dq, lib.wft_attn_bwd_dkdv):
-            fn.restype = ctypes.c_int
+        lib.wft_attn_bwd.argtypes = [P] * 11 + dims
+        lib.wft_attn_fwd.restype = lib.wft_attn_bwd.restype = ctypes.c_int
         lib._wft_bound = True
     return lib
+
+
+def _lib():
+    from whisper_finetune_torch._build import libraries
+
+    return bind(libraries()["attention"])
 
 
 def _kernel_ready(x: torch.Tensor) -> bool:
@@ -163,9 +167,8 @@ def _as_layout(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _prep(q, k, v):
-    """Check the inputs of a kernel launch and give them the layouts the
-    kernels take: q (and o, do) one stride set, k and v another."""
+def _check_inputs(q, k, v) -> None:
+    """Raise on what the kernels do not take."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
@@ -175,6 +178,11 @@ def _prep(q, k, v):
             raise ValueError(f"{name} must be (B, H, T, {HEAD_DIM}), got {tuple(x.shape)}")
     if q.shape[:2] != k.shape[:2] or k.shape != v.shape:
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+
+
+def _layout(q, k, v):
+    """q, k, v in the layouts the kernels take: q (and o, do) one stride
+    set, k and v another (copies only where a tensor does not comply)."""
     if not _kernel_ready(q):
         q = q.contiguous()
     if not _kernel_ready(k):
@@ -183,6 +191,19 @@ def _prep(q, k, v):
     if not _kernel_ready(v):
         k, v = k.contiguous(), v.contiguous()
     return q, k, v
+
+
+def _prep(q, k, v):
+    """Check the inputs of a kernel launch and lay them out."""
+    _check_inputs(q, k, v)
+    return _layout(q, k, v)
+
+
+def _bwd_layout(q, k, v, o, do):
+    """The backward's five inputs, each laid out once: o and do (in bf16)
+    take q's strides."""
+    q, k, v = _layout(q, k, v)
+    return q, k, v, _as_layout(o, q), _as_layout(do.to(torch.bfloat16), q)
 
 
 def _dims(q, k, sm_scale, causal):
@@ -221,58 +242,39 @@ def attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 attn_fwd.launches = 0
 
 
-def attn_bwd_dq(q, k, v, o, do, lse, causal: bool, sm_scale: float):
-    """dQ kernel; also returns delta = rowsum(dO * O) (B, H, Tq) float32,
-    which :func:`attn_bwd_dkdv` reads. o and do take q's strides."""
+def attn_bwd(q, k, v, o, do, lse, causal: bool, sm_scale: float):
+    """Backward kernels: -> (dq with q's strides, dk and dv with k's), all
+    bf16. One C call launches the three kernels on the current stream; the
+    float32 scratch (the row statistics (2, B, H, Tq): lse * log2(e) and
+    delta = rowsum(dO * O); the dQ accumulator (B, H, Tq, 64))
+    is allocated here and freed on return."""
     if q.device.type == "cpu":
-        return attn_bwd_dq_plain(q, k, v, o, do, lse, causal, sm_scale)
+        return attn_bwd_plain(q, k, v, o, do, lse, causal, sm_scale)
     from whisper_finetune_torch._build import check, stream_ptr
 
-    q, k, v = _prep(q, k, v)
-    o, do = _as_layout(o, q), _as_layout(do.to(torch.bfloat16), q)
+    _check_inputs(q, k, v)
+    q, k, v, o, do = _bwd_layout(q, k, v, o, do)
     B, H, Tq, _ = q.shape
-    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    dq = torch.empty_like(q)
+    stats = torch.empty((2, B, H, Tq), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((B, H, Tq, HEAD_DIM), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(k)
     lib = _lib()
-    rc = lib.wft_attn_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                             delta.data_ptr(), dq.data_ptr(),
-                             *_dims(q, k, sm_scale, causal), stream_ptr())
-    check(lib, rc, "attn_bwd_dq")
-    attn_bwd_dq.launches += 1
-    return dq, delta
+    rc = lib.wft_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                          do.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+                          dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                          *_dims(q, k, sm_scale, causal), stream_ptr())
+    check(lib, rc, "attn_bwd")
+    attn_bwd.launches += 1
+    return dq, dk, dv
 
 
-attn_bwd_dq.launches = 0
-
-
-def attn_bwd_dkdv(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
-    """dK/dV kernel (outputs with k's strides)."""
-    if q.device.type == "cpu":
-        return attn_bwd_dkdv_plain(q, k, v, do, lse, delta, causal, sm_scale)
-    from whisper_finetune_torch._build import check, stream_ptr
-
-    q, k, v = _prep(q, k, v)
-    do = _as_layout(do.to(torch.bfloat16), q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(k)
-    lib = _lib()
-    rc = lib.wft_attn_bwd_dkdv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                               dk.data_ptr(), dv.data_ptr(),
-                               *_dims(q, k, sm_scale, causal), stream_ptr())
-    check(lib, rc, "attn_bwd_dkdv")
-    attn_bwd_dkdv.launches += 1
-    return dk, dv
-
-
-attn_bwd_dkdv.launches = 0
+attn_bwd.launches = 0
 
 
 class _KernelAttention(torch.autograd.Function):
     """Forward and backward are the kernels (their plain twins on the CPU);
     saves q, k, v, o and the (B, H, Tq) log-sum-exp. Each kernel wrapper
-    lays out its own inputs; the model's q, k, v views already have the
+    lays out its own inputs once; the model's q, k, v views already have the
     kernels' layout, so nothing is copied."""
 
     @staticmethod
@@ -285,8 +287,7 @@ class _KernelAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, delta = attn_bwd_dq(q, k, v, o, do, lse, ctx.causal, ctx.sm_scale)
-        dk, dv = attn_bwd_dkdv(q, k, v, do, lse, delta, ctx.causal, ctx.sm_scale)
+        dq, dk, dv = attn_bwd(q, k, v, o, do, lse, ctx.causal, ctx.sm_scale)
         return dq, dk, dv, None, None
 
 
@@ -343,7 +344,7 @@ def flash_fwd_xla_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _KernelForwardPlainBackward.apply(q, k, v, causal, sm_scale)
 
 
-KERNELS = (attn_fwd, attn_bwd_dq, attn_bwd_dkdv)  # each carries a .launches count
+KERNELS = (attn_fwd, attn_bwd)  # each carries a .launches count
 
 
 # ---------------------------------------------------------------------------
