@@ -12,11 +12,15 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    math in the twin, at the main path's shapes: the attention forward and the
    fused backward (dq, dk, dv) at (2, 20, 1500x1500), (2, 20, 448x1500) and
    causal (2, 20, 448x448) plus ragged and small causal shapes, one with fewer
-   keys than a key tile, one with fewer queries than a query tile and one
-   causal over three key tiles, and the forward
-   instance that writes no log-sum-exp at the three main-path shapes; the
-   backward twice on the same inputs (dk and dv bit-equal, dq's largest
-   difference printed); the fused 8-bit AdamW on (NB, 256) leaves with NB
+   keys than a 64-key tile, one with fewer than the forward's 128-key tile, one
+   with fewer queries than a query tile, one causal over three key tiles and
+   two with one query and one key past a whole tile (129x257, causal
+   257x257), and the forward instance that writes no log-sum-exp at the three
+   main-path shapes; the forward twice on the same inputs (both instances: o
+   and lse bit-equal) and the backward twice (dk and dv bit-equal, dq's
+   largest difference printed); the forward's registers and spills from
+   ``ptxas -v`` and its blocks an SM from the occupancy calculator; the fused
+   8-bit AdamW on (NB, 256) leaves with NB
    divisible and not divisible by 128, three steps. Then each kernel's time
    at the main path's shapes, its plain twin's time, the PyTorch library
    call's time (``scaled_dot_product_attention`` and its backward), and the
@@ -70,6 +74,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -206,8 +211,11 @@ CHECK_SHAPES = (
     (2, 20, 1500, 1500, False), (2, 20, 448, 1500, False), (2, 20, 448, 448, True),  # main path
     (1, 3, 77, 131, False), (1, 3, 77, 77, True), (1, 2, 200, 200, True),
     (1, 2, 130, 40, False),   # fewer keys than one key tile
+    (1, 2, 70, 100, False),   # fewer keys than the forward's 128-key tile
     (1, 2, 24, 150, False),   # fewer queries than one query tile
     (2, 3, 300, 300, True),   # causal, three key tiles, Tq no multiple of a tile
+    (1, 2, 129, 257, False),  # one query and one key past a whole tile
+    (1, 2, 257, 257, True),   # the same, causal: a last query tile of one row
 )
 
 
@@ -288,6 +296,62 @@ def check_bwd_repeatable(gen) -> dict:
         log(f"  attn_bwd twice {B}x{H}x{Tq}x{Tk} causal={int(causal)}: dk, dv bit-equal; "
             f"dq max diff {diff:.3e} (peak {peak:.3e})")
     return {"dq_max_diff": worst}
+
+
+def check_fwd_repeatable(gen) -> None:
+    """``attn_fwd`` twice on the same inputs at the three main-path shapes,
+    both instances: the forward has no atomics, so o and lse must be
+    bit-equal."""
+    import torch
+    from whisper_finetune_torch.ops import attention as A
+
+    scale = 64 ** -0.5
+    for B, H, Tq, Tk, causal in CHECK_SHAPES[:3]:
+        q, k, v = _qkv(B, H, Tq, Tk, gen)
+        for with_lse in (True, False):
+            first = A.attn_fwd(q, k, v, causal, scale, with_lse=with_lse)
+            second = A.attn_fwd(q, k, v, causal, scale, with_lse=with_lse)
+            torch.cuda.synchronize()
+            if not (torch.equal(first[0], second[0])
+                    and (not with_lse or torch.equal(first[1], second[1]))):
+                raise AssertionError(f"attn_fwd {B}x{H}x{Tq}x{Tk} with_lse={with_lse}: "
+                                     "two runs differ")
+        log(f"  attn_fwd twice {B}x{H}x{Tq}x{Tk} causal={int(causal)}: o and lse bit-equal, "
+            "both instances")
+
+
+def ptxas_usage(log_text: str, kernel: str) -> dict:
+    """Registers and spill bytes of each instance of ``kernel`` (by mangled
+    name) from the ``nvcc -Xptxas -v`` report of the build."""
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = m.group(1) if kernel in m.group(1) else None
+            if cur:
+                out[cur] = {}
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out[cur].update(spill_store_bytes=int(m[1]), spill_load_bytes=int(m[2]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[cur]["registers"] = int(m[1])
+    return out
+
+
+def fwd_resources(ptxas_log: str) -> dict:
+    """The forward's registers and spills (``ptxas -v``), and its blocks an
+    SM and dynamic shared memory (the occupancy calculator), per instance."""
+    from whisper_finetune_torch.ops import attention as A
+
+    usage = ptxas_usage(ptxas_log, "attn_fwd_kernel")
+    out = {}
+    for inst, flag in (("with_lse", "ILb1E"), ("no_lse", "ILb0E")):
+        regs = next((u for name, u in usage.items() if flag in name), {})
+        out[inst] = {**regs, **A.attn_fwd_occupancy(inst == "with_lse")}
+    log(f"  attn_fwd resources: {json.dumps(out)}")
+    return out
 
 
 def compare_adamw8(label, p, mc, ms, nc, ns, gen, out: dict) -> dict:
@@ -801,7 +865,8 @@ def profile_steps(step, state, batch, gen, n_steps: int = 2) -> dict:
                      "calls_per_step": e.count / n_steps} for e in top]}
 
 
-def attention_entries(enc, cross, dec_self, attn_err, repeatable, by_leg, per_step) -> list:
+def attention_entries(enc, cross, dec_self, attn_err, repeatable, fwd_res, by_leg,
+                      per_step) -> list:
     """The ``kernels`` entries of ``attn_fwd`` and ``attn_bwd``: the encoder
     site's numbers at the top level, the other two sites under their names.
     ``by_leg`` maps a leg to its launch counts; it is empty when no leg ran."""
@@ -832,6 +897,8 @@ def attention_entries(enc, cross, dec_self, attn_err, repeatable, by_leg, per_st
                for site, rec in (("cross", cross), ("decoder_self", dec_self))},
         }
         if name == "attn_fwd":
+            entry["resources"] = fwd_res
+            entry["repeatable"] = "o and lse bit-equal over two runs"
             entry["no_lse"] = {"max_abs_err": attn_err["attn_fwd_nolse"], **{
                 site: {"ms": rec[name]["nolse_ms"], "plain_ms": rec[name]["nolse_plain_ms"]}
                 for site, rec in (("encoder", enc), ("cross", cross), ("decoder_self", dec_self))}}
@@ -881,7 +948,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     log("kernels vs plain twins:")
+    fwd_res = fwd_resources(libs.ptxas_log)
     attn_err = check_attention(gen)
+    check_fwd_repeatable(gen)
     repeatable = check_bwd_repeatable(gen)
     adam = check_adamw8(gen)
     log("timing at main-path shapes:")
@@ -904,7 +973,7 @@ def main() -> int:
         f"forward alone {dec_route['kernels']['fwd_ms']:.3f} / {dec_route['plain']['fwd_ms']:.3f} ms")
 
     if "--kernels-only" in sys.argv[1:]:
-        print_result(attention_entries(enc, cross, dec_self, attn_err, repeatable, {}, {}))
+        print_result(attention_entries(enc, cross, dec_self, attn_err, repeatable, fwd_res, {}, {}))
         return 0
 
     log("main path:")
@@ -947,7 +1016,8 @@ def main() -> int:
 
     per_step = main_rec["launches_per_step"]
     by_leg = {"splash_adamw8": main_rec["launches"], **{k: v["launches"] for k, v in legs.items()}}
-    kernels = attention_entries(enc, cross, dec_self, attn_err, repeatable, by_leg, per_step)
+    kernels = attention_entries(enc, cross, dec_self, attn_err, repeatable, fwd_res, by_leg,
+                                per_step)
     kernels.append({
         "name": "fused_adamw8", "route": "cuda",
         "source": "whisper_finetune_torch/csrc/fused_adamw8.cu",

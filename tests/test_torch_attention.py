@@ -5,6 +5,8 @@ gradients, valid rows only (splash pads to 128 and slices the padding off);
 the flash and flash_fwd routes against ``attention(impl=...)`` of JAX, which
 on the CPU runs ``flash_mha`` through ``xla_mha`` as its own tests do."""
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +28,10 @@ def _t(x, grad=False):
     return torch.from_numpy(np.array(x)).requires_grad_(grad)
 
 
-CASES = [(48, 96, False), (77, 131, False), (24, 150, False), (64, 64, True), (77, 77, True)]
+# ragged, fewer queries than a tile, causal; one query and one key past a
+# whole tile (the forward kernel's last tiles), plain and causal
+CASES = [(48, 96, False), (77, 131, False), (24, 150, False), (64, 64, True), (77, 77, True),
+         (129, 257, False), (257, 257, True)]
 
 
 @pytest.mark.parametrize("Tq,Tk,causal", CASES)
@@ -184,7 +189,7 @@ def test_backward_inputs_are_laid_out_once(monkeypatch):
 
 # ragged (no multiple of 64 or 128), causal and not, square and cross shapes
 FLASH_CASES = [(48, 96, False), (77, 131, False), (24, 150, False), (64, 64, True),
-               (77, 77, True), (150, 150, False)]
+               (77, 77, True), (150, 150, False), (129, 257, False), (257, 257, True)]
 
 
 @pytest.mark.parametrize("impl", ["flash", "flash_fwd"])
@@ -273,6 +278,54 @@ def test_flash_wrappers_refuse_other_devices(fn):
     q = torch.empty((1, 1, 4, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         getattr(A, fn)(q, q, q)
+
+
+class _FakeEntry:
+    """A stand-in for a ctypes function of the kernel library."""
+    argtypes = restype = None
+
+
+def test_bind_declares_every_c_entry():
+    """``bind`` gives each C entry of ``csrc/attention.cu`` its argument
+    types (pointers and the stream as ``c_void_p``, the dims as int, long
+    long and float, in the order of ``WFT_DIMS_ARGS``) and an int result,
+    once for a library."""
+    import ctypes
+    import types
+
+    lib = types.SimpleNamespace(**{name: _FakeEntry() for name in
+                                   ("wft_attn_fwd", "wft_attn_bwd", "wft_attn_fwd_occupancy")})
+    assert A.bind(lib) is lib and lib._wft_bound
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    dims = [I, I, I, I, L, L, L, L, L, L, F, I, P]
+    assert lib.wft_attn_fwd.argtypes == [P] * 5 + dims
+    assert lib.wft_attn_bwd.argtypes == [P] * 11 + dims
+    assert lib.wft_attn_fwd_occupancy.argtypes == [I, P, P]
+    assert all(getattr(lib, n).restype is I for n in
+               ("wft_attn_fwd", "wft_attn_bwd", "wft_attn_fwd_occupancy"))
+    lib.wft_attn_fwd.argtypes = None
+    A.bind(lib)  # bound already: left as it is
+    assert lib.wft_attn_fwd.argtypes is None
+    source = (Path(A.__file__).parent.parent / "csrc" / "attention.cu").read_text()
+    assert all(f'extern "C" int {n}(' in source for n in
+               ("wft_attn_fwd", "wft_attn_bwd", "wft_attn_fwd_occupancy"))
+
+
+def test_attn_fwd_variants_edits_find_their_statements():
+    """The forward's timing variants of ``attention.cu`` find their
+    statements once each and differ from the kernel as built and from each
+    other."""
+    from whisper_finetune_torch import _build
+    from whisper_finetune_torch.tools import attn_bwd_variants as V
+    from whisper_finetune_torch.tools import attn_fwd_variants as F
+
+    source = (_build.CSRC / "attention.cu").read_text()
+    texts = V.variant_sources(source, F.VARIANTS)
+    assert texts["as_built"] == source and len(set(texts.values())) == len(texts)
+    for name, edits in F.VARIANTS.items():
+        for old, _ in edits:
+            with pytest.raises(RuntimeError, match="not once"):
+                V.variant_sources(source.replace(old, ""), {name: edits})
 
 
 def test_attn_bwd_variants_edits_find_their_statements():

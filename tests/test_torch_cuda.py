@@ -23,7 +23,8 @@ def card():
 
 @pytest.mark.parametrize("Tq,Tk,causal", [(77, 131, False), (150, 150, False),
                                           (24, 150, False), (200, 200, True),
-                                          (130, 40, False), (300, 300, True)])
+                                          (130, 40, False), (300, 300, True),
+                                          (129, 257, False), (257, 257, True)])
 def test_attention_kernels_match_plain(card, Tq, Tk, causal):
     from whisper_finetune_torch.ops import attention as A
 

@@ -30,9 +30,33 @@
 // touches device memory in either direction: every score tile lives in
 // registers.
 //
-// Forward: 4 warps, 64 query rows a block, key tiles of 64, mma.sync m16n8k16
-// from padded shared memory, no software pipelining (it is the next kernel to
-// be rebuilt on the helpers of attention_common.cuh).
+// Forward (attn_fwd_kernel): one block of one warpgroup (4 warps) per
+// (batch*head, 64-query tile), three blocks an SM (168 registers, 73 KB),
+// which run out of step and fill each other's waits. One thread asks TMA
+// for the Q tile once and for the K and V tiles of 128 keys into a ring of
+// two slots, one tile ahead, each slot with an mbarrier that counts its
+// bytes; the tiles land in the 128-byte swizzle wgmma reads, rows past the
+// end as zeros. Q moves into registers as the A operand of S = Q K^T (wgmma
+// m64n128k16), so the products read only K and V from shared memory. The
+// online softmax runs in the accumulator registers (scale and running
+// maximum in one FMA, exp2 by the special-function unit, masks only in the
+// tiles at the end of k or on the diagonal), P becomes bf16 A fragments
+// without leaving the registers, and O += P V is wgmma with the V tile read
+// down its rows. Under the causal mask the heads' query tiles with the most
+// keys start first.
+//
+// What bounds the forward: at the encoder's and the cross-attention's shapes
+// the operations, and among them the exponentials as much as the products.
+// It does 256 tensor FLOP and one exp2 a score, and an SM does 4096 bf16
+// FLOP but 16 exp2 a clock, so at D = 64 the exponentials alone take as long
+// as the products (0.093 ms at the encoder's shape), with about four float32
+// operations a score on top. Measured on an H100 (PERF.md), no one unit
+// holds it: without the exp2 it is 10% faster, without P V 17%, without
+// the K/V loads 7%; the rest is the latency of one warpgroup's chain of
+// product, softmax and product, which three blocks an SM only partly hide
+// (overlapping a block's own softmax with its products measured slower:
+// registers). At the decoder's causal 448 x 448 the bytes bound it, and the
+// launch's few, short blocks.
 //
 // Backward (wft_attn_bwd: three launches on one stream):
 //   attn_bwd_prep_kernel        lse * log2(e) and delta = rowsum(dO * O) in
@@ -76,6 +100,7 @@
 // keys a block would halve that but needs two warpgroups in step on one dS
 // tile, which measured slower than three independent blocks an SM.
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -88,168 +113,181 @@ namespace {
 
 using namespace wft;
 
-constexpr int BM = 64;         // forward: rows of a tile
-constexpr int LDS = D + 8;     // forward: padded shared-memory row, in bf16 (144 B)
-constexpr int NT = 128;        // forward: threads a block
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int FWD_BM = 64;       // queries a block
+constexpr int FWD_BN = 128;      // keys a tile
+constexpr int FWD_NT = 128;      // one warpgroup; three blocks share an SM
+constexpr int FWD_STAGES = 2;    // ring slots of (K, V) tiles: one in use, one in flight
+constexpr int FWD_Q_BYTES = FWD_BM * 128;
+constexpr int FWD_KV_BYTES = FWD_BN * 128;
+// Shared memory of attn_fwd_kernel, in bytes from a 1024-byte aligned base.
+constexpr int FWD_OFF_Q = 0;
+constexpr int FWD_OFF_K = FWD_OFF_Q + FWD_Q_BYTES;
+constexpr int FWD_OFF_V = FWD_OFF_K + FWD_STAGES * FWD_KV_BYTES;
+constexpr int FWD_SMEM = FWD_OFF_V + FWD_STAGES * FWD_KV_BYTES + 1024;  // + alignment slack
+// (the SM's 228 KB less 1 KB the system keeps for each block)
+static_assert(3 * (FWD_SMEM + 1024) <= 228 * 1024, "attn_fwd_kernel: shared memory for three blocks an SM");
 
-// A fragment (16 x 16, row-major) of rows r0.., columns kk*16.. of a tile.
-__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* s, int r0,
-                                       int kk, int g, int t) {
-  const bf16* p = s + (r0 + g) * LDS + kk * 16 + t * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LDS);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LDS + 8);
-}
-
-// B fragment (16 x 8) with B[k][n] = M[n0 + n][kk*16 + k]: M's rows are n.
-__device__ __forceinline__ void frag_b_rows(uint32_t* b, const bf16* s, int n0,
-                                            int kk, int g, int t) {
-  const bf16* p = s + (n0 + g) * LDS + kk * 16 + t * 2;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// B fragment (16 x 8) with B[k][n] = M[kk*16 + k][n0 + n]: M's rows are k.
-__device__ __forceinline__ void frag_b_cols(uint32_t* b, const bf16* s, int n0,
-                                            int kk, int g, int t) {
-  const unsigned short* u = reinterpret_cast<const unsigned short*>(s);
-  const int k = kk * 16 + t * 2, n = n0 + g;
-  b[0] = (uint32_t)u[k * LDS + n] | ((uint32_t)u[(k + 1) * LDS + n] << 16);
-  b[1] = (uint32_t)u[(k + 8) * LDS + n] | ((uint32_t)u[(k + 9) * LDS + n] << 16);
-}
-
-// 64 rows x 64 bf16 from global (row stride st) into padded shared memory;
-// rows at or past T load as zeros.
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* base,
-                                          long long st, int row0, int T) {
-  for (int i = threadIdx.x; i < BM * (D / 8); i += NT) {
-    const int r = i >> 3, c = i & 7;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T)
-      v = *reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * st + c * 8);
-    *reinterpret_cast<uint4*>(sm + r * LDS + c * 8) = v;
+// One key tile of the online softmax for this thread's two rows (row and
+// row + 8): s holds the scores Q K^T of the tile and becomes the
+// probabilities exp2(s * sl2 - m), with m the rows' running maxima in log2
+// units (scale and maximum in one FMA); l is this thread's share of the rows'
+// running sums (its quad adds them up once, at the end) and alpha the factor
+// by which the rows of O shrink. kEdge: keys at or past Tk and, under the
+// causal mask, keys after the query score -inf first.
+template <bool kEdge, int NT>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT][4], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], float sl2, int row, int key0,
+                                             int t, const Dims& d) {
+  if (kEdge) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = key0 + acc_col(nt, j, t);
+        if (!(col < d.Tk && (!d.causal || col <= row + 8 * (j >> 1)))) s[nt][j] = -INFINITY;
+      }
   }
-}
-
-// S (16 x 64) = A-rows of sa (rows r0..) times the rows of sb, transposed.
-__device__ __forceinline__ void tile_qkT(float (*s)[4], const bf16* sa, int r0,
-                                         const bf16* sb, int g, int t) {
-  uint32_t a[4], b[2];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    float mx0 = -INFINITY, mx1 = -INFINITY;  // two chains
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    frag_a(a, sa, r0, kk, g, t);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      frag_b_rows(b, sb, nt * 8, kk, g, t);
-      mma16816(s[nt], a, b);
+    for (int nt = 0; nt < NT; nt += 2) {
+      mx0 = fmaxf(mx0, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nt + 1][2 * r], s[nt + 1][2 * r + 1]));
     }
-  }
-}
-
-// acc (16 x 64) += P (16 x 64, float accumulators) times the tile sb.
-__device__ __forceinline__ void tile_pv(float (*acc)[4], float (*p)[4],
-                                        const bf16* sb, int g, int t) {
-  uint32_t a[4], b[2];
+    const float m_new = fmaxf(m[r], quad_max(fmaxf(mx0, mx1)) * sl2);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
+    alpha[r] = fast_exp2(m[r] - m_use);
+    float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    acc_to_a(a, p, kk);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      frag_b_cols(b, sb, nt * 8, kk, g, t);
-      mma16816(acc[nt], a, b);
+    for (int nt = 0; nt < NT; ++nt) {
+      const float p0 = fast_exp2(fmaf(s[nt][2 * r], sl2, -m_use));
+      const float p1 = fast_exp2(fmaf(s[nt][2 * r + 1], sl2, -m_use));
+      s[nt][2 * r] = p0;
+      s[nt][2 * r + 1] = p1;
+      sum0 += p0;
+      sum1 += p1;
     }
+    l[r] = l[r] * alpha[r] + (sum0 + sum1);
+    m[r] = m_new;
   }
 }
 
+// One block per (batch*head, 64-query tile). Under the causal mask the grid
+// is (B*H, query tiles) and a head's tiles run from the one with the most
+// keys to the one with the fewest; otherwise (query tiles, B*H), so that the
+// blocks of one head run side by side and share its K and V in L2. q, k, v
+// come as TMA maps of boxes of 64 (q) and FWD_BN (k, v) rows.
 template <bool kWriteLse>
-__global__ void __launch_bounds__(NT)
-attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o,
+__global__ void __launch_bounds__(FWD_NT, 3)
+attn_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
                 float* __restrict__ lse, Dims d) {
-  __shared__ __align__(16) bf16 sQ[BM * LDS];
-  __shared__ __align__(16) bf16 sK[BM * LDS];
-  __shared__ __align__(16) bf16 sV[BM * LDS];
-  const int bh = blockIdx.y, b = bh / d.H, h = bh % d.H;
-  const int q0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[FWD_STAGES + 1];  // a slot's tile has landed; [FWD_STAGES]: Q
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* qb = q + b * d.sqb + h * d.sqh;
-  const bf16* kb = k + b * d.skb + h * d.skh;
-  const bf16* vb = v + b * d.skb + h * d.skh;
+  const int bh = d.causal ? blockIdx.x : blockIdx.y;
+  const int q0 = (d.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.x) * FWD_BM;
+  const int b = bh / d.H, h = bh % d.H;
+  const int k_end = d.causal ? min(d.Tk, q0 + FWD_BM) : d.Tk;
+  const int n = (k_end + FWD_BN - 1) / FWD_BN;  // key tiles
+  const uint32_t sQ = base + FWD_OFF_Q, bar = smem_u32(full);
+  auto sK = [&](int j) { return base + FWD_OFF_K + (j % FWD_STAGES) * FWD_KV_BYTES; };
+  auto sV = [&](int j) { return base + FWD_OFF_V + (j % FWD_STAGES) * FWD_KV_BYTES; };
+  auto slot_bar = [&](int j) { return bar + 8 * (j % FWD_STAGES); };
+  auto load_kv = [&](int j) {  // by thread 0
+    if (j < n) {
+      mbar_expect_tx(slot_bar(j), 2 * FWD_KV_BYTES);
+      tma_load_4d(sK(j), &k_map, slot_bar(j), 0, j * FWD_BN, h, b);
+      tma_load_4d(sV(j), &v_map, slot_bar(j), 0, j * FWD_BN, h, b);
+    }
+  };
 
-  load_tile(sQ, qb, d.sqt, q0, d.Tq);
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= FWD_STAGES; ++i) mbar_init(bar + 8 * i, 1);
+    fence_mbar_init();
+    mbar_expect_tx(bar + 8 * FWD_STAGES, FWD_Q_BYTES);
+    tma_load_4d(sQ, &q_map, bar + 8 * FWD_STAGES, 0, q0, h, b);
+#pragma unroll
+    for (int i = 0; i < FWD_STAGES - 1; ++i) load_kv(i);
+  }
+  __syncthreads();  // the barriers are initialised
+
   const float sl2 = d.scale * LOG2E;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  const int row = q0 + warp * 16 + g;  // and row + 8
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
   float acc[8][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
+  // Q as the A operand of S = Q K^T, in registers for the block's life.
+  uint32_t qa[D / 16][4];
+  mbar_wait(bar + 8 * FWD_STAGES, 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) tile_to_a(qa[kk], sQ, warp, g, t, kk);
 
-  const int k_end = d.causal ? min(d.Tk, q0 + BM) : d.Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BM) {
-    __syncthreads();  // the previous tile is consumed (and sQ is loaded)
-    load_tile(sK, kb, d.skt, k0, d.Tk);
-    load_tile(sV, vb, d.skt, k0, d.Tk);
-    __syncthreads();
-
-    float s[8][4];
-    tile_qkT(s, sQ, warp * 16, sK, g, t);
+  for (int j = 0; j < n; ++j) {
+    if (j > 0) __syncthreads();  // every warp is done with tile j-1: its slot is free
+    if (tid == 0) load_kv(j + FWD_STAGES - 1);
+    mbar_wait(slot_bar(j), (j / FWD_STAGES) & 1);  // tile j has landed
+    // S = Q K^T: Q from the registers, the K tile K-major (rows = keys, the
+    // head dim summed along them).
+    float s[FWD_BN / 8][4];
+    const uint64_t dK = wg_desc(sK(j));
+    wg_fence();
+    wgmma_rs_n128_first<0>(s, qa[0], dK);
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk) wgmma_rs_n128<0>(s, qa[kk], dK + kk * WG_K_STEP);
+    wg_commit();
+    wg_wait<0>();
+    wg_acc_fence(s);
+    const int key0 = j * FWD_BN;
+    // Masks only where the tile touches the end of k or the diagonal.
+    if (key0 + FWD_BN > d.Tk || (d.causal && key0 + FWD_BN - 1 > q0))
+      softmax_tile<true>(s, m, l, alpha, sl2, row, key0, t, d);
+    else
+      softmax_tile<false>(s, m, l, alpha, sl2, row, key0, t, d);
+    uint32_t pa[FWD_BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < FWD_BN / 16; ++kk) acc_to_a(pa[kk], s, kk);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + acc_col(nt, j, t);
-        const bool ok = col < d.Tk && (!d.causal || col <= row[j >> 1]);
-        s[nt][j] = ok ? s[nt][j] * sl2 : -INFINITY;
-      }
-
+      for (int jj = 0; jj < 4; ++jj) acc[nt][jj] *= alpha[jj >> 1];
+    // O += P V_j: P from the registers, the V tile read down its rows (the
+    // keys are the summed dim).
+    wg_acc_fence(acc);
+    wg_fence();
+    const uint64_t dV = wg_desc(sV(j));
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      mx = quad_max(mx);
-      const float m_new = fmaxf(m_r[r], mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = exp2f(m_r[r] - m_use);
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float p0 = exp2f(s[nt][2 * r] - m_use);
-        const float p1 = exp2f(s[nt][2 * r + 1] - m_use);
-        s[nt][2 * r] = p0;
-        s[nt][2 * r + 1] = p1;
-        sum += p0 + p1;
-        acc[nt][2 * r] *= alpha;
-        acc[nt][2 * r + 1] *= alpha;
-      }
-      l_r[r] = l_r[r] * alpha + quad_sum(sum);
-      m_r[r] = m_new;
-    }
-    tile_pv(acc, s, sV, g, t);
+    for (int kk = 0; kk < FWD_BN / 16; ++kk) wgmma_rs_n64<1>(acc, pa[kk], dV + kk * WG_MN_STEP);
+    wg_commit();
+    wg_wait<0>();
+    wg_acc_fence(acc);
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (row[r] >= d.Tq) continue;
-    const float inv = l_r[r] > 0.f ? 1.f / l_r[r] : 0.f;
-    bf16* orow = o + b * d.sqb + h * d.sqh + (long long)row[r] * d.sqt;
+    const float l_row = quad_sum(l[r]);  // every lane of the quad takes part
+    if (row + 8 * r >= d.Tq) continue;
+    const float inv = l_row > 0.f ? 1.f / l_row : 0.f;
+    bf16* orow = o + b * d.sqb + h * d.sqh + (long long)(row + 8 * r) * d.sqt;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const uint32_t val = pack_f2(acc[nt][2 * r] * inv, acc[nt][2 * r + 1] * inv);
-      *reinterpret_cast<uint32_t*>(orow + nt * 8 + t * 2) = val;
-    }
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<uint32_t*>(orow + nt * 8 + t * 2) =
+          pack_f2(acc[nt][2 * r] * inv, acc[nt][2 * r + 1] * inv);
     if (kWriteLse && t == 0)
-      lse[(long long)bh * d.Tq + row[r]] =
-          l_r[r] > 0.f ? (m_r[r] + log2f(l_r[r])) * LN2 : INFINITY;
+      lse[(long long)bh * d.Tq + row + 8 * r] =
+          l_row > 0.f ? (m[r] + log2f(l_row)) * LN2 : INFINITY;
   }
 }
 
@@ -584,6 +622,56 @@ Dims make_dims(int B, int H, int Tq, int Tk, long long sqb, long long sqh,
   return d;
 }
 
+// Both kernels take more shared memory than the 48 KB a kernel gets unasked:
+// the limit is raised once for each device, at that device's first call (not
+// once a launch: a training step makes dozens, some under graph capture).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, int bytes, bool (&raised)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev >= 0 && dev < 64 && raised[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev >= 0 && dev < 64) raised[dev] = true;
+  return err;
+}
+
+// cuTensorMapEncodeTiled, found through the runtime (nothing links libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The TMA map of a (B, H, T, 64) bf16 tensor with strides (sb, sh, st)
+// elements: boxes of `rows` rows x 64, 128-byte swizzled, rows past T read
+// as zeros.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int H, int T, long long sb,
+                       long long sh, long long st, int rows) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[4] = {64, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1}, unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t allow_fwd_smem(bool with_lse) {
+  static bool raised_lse[64] = {}, raised_nolse[64] = {};
+  return with_lse ? allow_smem(attn_fwd_kernel<true>, FWD_SMEM, raised_lse)
+                  : allow_smem(attn_fwd_kernel<false>, FWD_SMEM, raised_nolse);
+}
+
 }  // namespace
 
 #define WFT_DIMS_ARGS                                                        \
@@ -595,18 +683,37 @@ Dims make_dims(int B, int H, int Tq, int Tk, long long sqb, long long sqh,
 // lse may be null: the forward then writes no log-sum-exp.
 extern "C" int wft_attn_fwd(const void* q, const void* k, const void* v, void* o,
                             void* lse, WFT_DIMS_ARGS) {
-  const dim3 grid((Tq + BM - 1) / BM, B * H);
+  const bool with_lse = lse != nullptr;
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err = allow_fwd_smem(with_lse);
+  if (err == cudaSuccess) err = tensor_map(&q_map, q, B, H, Tq, sqb, sqh, sqt, FWD_BM);
+  if (err == cudaSuccess) err = tensor_map(&k_map, k, B, H, Tk, skb, skh, skt, FWD_BN);
+  if (err == cudaSuccess) err = tensor_map(&v_map, v, B, H, Tk, skb, skh, skt, FWD_BN);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned q_tiles = (Tq + FWD_BM - 1) / FWD_BM, bh = B * H;
+  const dim3 grid = causal ? dim3(bh, q_tiles) : dim3(q_tiles, bh);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lse != nullptr)
-    attn_fwd_kernel<true><<<grid, NT, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o),
-        static_cast<float*>(lse), WFT_DIMS);
+  if (with_lse)
+    attn_fwd_kernel<true><<<grid, FWD_NT, FWD_SMEM, s>>>(
+        q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), WFT_DIMS);
   else
-    attn_fwd_kernel<false><<<grid, NT, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), nullptr, WFT_DIMS);
+    attn_fwd_kernel<false><<<grid, FWD_NT, FWD_SMEM, s>>>(
+        q_map, k_map, v_map, static_cast<bf16*>(o), nullptr, WFT_DIMS);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the forward (the instance with the log-sum-exp if with_lse) that
+// fit on one SM at once, by the occupancy calculator, and the dynamic shared
+// memory a block asks for.
+extern "C" int wft_attn_fwd_occupancy(int with_lse, int* blocks, int* smem_bytes) {
+  cudaError_t err = allow_fwd_smem(with_lse);
+  if (err == cudaSuccess)
+    err = with_lse ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, attn_fwd_kernel<true>,
+                                                                    FWD_NT, FWD_SMEM)
+                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, attn_fwd_kernel<false>,
+                                                                    FWD_NT, FWD_SMEM);
+  *smem_bytes = FWD_SMEM;
+  return static_cast<int>(err);
 }
 
 // The whole backward on one stream: the row statistics and the zeroed float32
@@ -618,19 +725,9 @@ extern "C" int wft_attn_bwd(const void* q, const void* k, const void* v,
                             void* dv, WFT_DIMS_ARGS) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dims d = WFT_DIMS;
-  // The fused kernel's shared memory is above the 48 KB a kernel gets unasked:
-  // the limit is raised once for each device, at that device's first call (not
-  // once a launch: a training step makes dozens, some under graph capture).
-  static bool smem_raised[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static bool raised[64] = {};
+  cudaError_t err = allow_smem(attn_bwd_kernel, BWD_SMEM, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= 64 || !smem_raised[dev]) {
-    err = cudaFuncSetAttribute(attn_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev >= 0 && dev < 64) smem_raised[dev] = true;
-  }
   const unsigned row_blocks =
       static_cast<unsigned>(((long long)B * H * Tq * 8 + 255) / 256);
   attn_bwd_prep_kernel<<<row_blocks, 256, 0, s>>>(

@@ -1,9 +1,11 @@
 // Device helpers shared by the attention kernels: the launch geometry, the
-// mma.sync m16n8k16 product and its register fragments (the forward's), and
+// accumulator's register layout and its packing into bf16 A fragments, and
 // the pieces of an asynchronous pipeline on Hopper: cp.async copies with zero
-// fill into 128-byte-swizzled tiles, wgmma products on such tiles, and bulk
-// reductions from shared to device memory. The backward kernel is built on
-// the second group; the forward can take it as it is.
+// fill into 128-byte-swizzled tiles, TMA tile loads counted on mbarriers,
+// wgmma products on such tiles (A from shared memory or registers), bulk
+// reductions from shared to device memory, and the special-function unit's
+// exp2. The forward is built on the TMA loads, the fused backward on
+// cp.async; both on the rest.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,25 +29,17 @@ struct Dims {
 };
 
 // ---------------------------------------------------------------------------
-// mma.sync m16n8k16 and its fragments
+// The accumulator's register layout (that of an mma.sync m16n8k16 C fragment,
+// which wgmma keeps: see below) and its A fragments
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A fragment for k-step kk from a 16 x 64 float accumulator held as eight
-// C fragments (the C layout of n-tiles 2kk, 2kk+1 is the A layout of kk).
+// A fragment for k-step kk from a 16 x N float accumulator held as N/8 C
+// fragments (the C layout of n-tiles 2kk, 2kk+1 is the A layout of kk).
 __device__ __forceinline__ void acc_to_a(uint32_t* a, float (*c)[4], int kk) {
   a[0] = pack_f2(c[2 * kk][0], c[2 * kk][1]);
   a[1] = pack_f2(c[2 * kk][2], c[2 * kk][3]);
@@ -225,6 +219,102 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t* a
       ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : WFT_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+
+#define WFT_ACC64(d) WFT_ACC16(d, 0), WFT_ACC16(d, 4), WFT_ACC16(d, 8), WFT_ACC16(d, 12)
+#define WFT_OUT64(d) WFT_OUT16(d, 0), WFT_OUT16(d, 4), WFT_OUT16(d, 8), WFT_OUT16(d, 12)
+#define WFT_D64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128) = A (registers) * B (descriptor b; TB as above), one k16 step
+// that overwrites d.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128_first(float (&d)[16][4], const uint32_t* a,
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WFT_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : WFT_OUT64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0), "n"(TB));
+}
+
+// d (64 x 128) += A (registers) * B (descriptor b), one k16 step.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WFT_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : WFT_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+
+// This thread's A fragment (16 x 16 of its warp's rows, as acc_to_a gives
+// it) of k16 step kk from a swizzled tile of 64 rows: rows 16w + g and
+// 16w + g + 8, columns 16kk + 2t, +1 and 16kk + 8 + 2t, +1.
+__device__ __forceinline__ void tile_to_a(uint32_t* a, uint32_t tile, int warp, int g, int t,
+                                          int kk) {
+  const int r = warp * 16 + g;
+  const uint32_t lo = tile + 4 * t;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    asm volatile("ld.shared.b32 %0, [%1];\n"
+                 : "=r"(a[i]) : "r"(lo + swz(r + 8 * (i & 1), 2 * kk + (i >> 1))) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA: one thread asks the copy engine for a whole tile of a tensor described
+// by a tensor map (built on the host, passed as a __grid_constant__ kernel
+// parameter), written into shared memory in the map's swizzle, rows past the
+// tensor's end as zeros. Completion is counted in bytes on an mbarrier, which
+// the consumers wait on; the copy writes through the asynchronous proxy, so
+// wgmma reads the tile without a proxy fence.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+// After the mbarriers are initialised, before any thread or copy uses them.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also announces `bytes` of copies to come.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Until the phase with this parity has completed. A phase that never
+// completes is a fault (a copy that cannot land), so after about 2**26 polls
+// the kernel traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// The box of a 4-D map at coordinates (c0 innermost .. c3) into shared memory
+// at dst, counted on bar.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------

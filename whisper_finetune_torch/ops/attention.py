@@ -19,10 +19,16 @@ The TPU's splash and flash kernels compute one function, so here they are
 one ``torch.autograd.Function`` over the two kernel wrappers of
 ``csrc/attention.cu``:
 
-  - ``attn_fwd``: flash-style forward, one block per (batch*head, 64-row
-    q-tile), online softmax in float32, writes O (bf16) and, unless the
-    caller asks for none, the per-row log-sum-exp (float32). ``mma.sync``
-    from padded shared memory, no software pipelining yet.
+  - ``attn_fwd``: flash-style forward, one warpgroup per (batch*head,
+    64-row q-tile) and three blocks an SM, online softmax in float32, writes
+    O (bf16) and, unless the caller asks for none, the per-row log-sum-exp
+    (float32). TMA brings Q once and K and V in tiles of 128 keys, one tile
+    ahead; Q stays in registers as the A operand of S = QK^T, and S and
+    O += PV are ``wgmma`` products with the softmax in the accumulator
+    registers between them. At D = 64 the forward does one ``exp2`` for
+    every 256 tensor FLOP, and the special-function unit's 16 a clock an SM
+    make the exponentials as long as the products; the three blocks of an
+    SM overlap one another's softmax and products.
   - ``attn_bwd``: the whole backward, (dq, dk, dv) from (q, k, v, o, do,
     lse), what splash's ``fused_bwd`` and flash's dK/dV + dQ kernels compute.
     Three launches on one stream: the row statistics (``lse * log2(e)`` and
@@ -137,7 +143,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         dims = [I, I, I, I, L, L, L, L, L, L, F, I, P]
         lib.wft_attn_fwd.argtypes = [P] * 5 + dims
         lib.wft_attn_bwd.argtypes = [P] * 11 + dims
-        lib.wft_attn_fwd.restype = lib.wft_attn_bwd.restype = ctypes.c_int
+        lib.wft_attn_fwd_occupancy.argtypes = [I, P, P]
+        for fn in (lib.wft_attn_fwd, lib.wft_attn_bwd, lib.wft_attn_fwd_occupancy):
+            fn.restype = I
         lib._wft_bound = True
     return lib
 
@@ -240,6 +248,18 @@ def attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 attn_fwd.launches = 0
+
+
+def attn_fwd_occupancy(with_lse: bool = True) -> dict:
+    """The forward's blocks an SM by the occupancy calculator, and the
+    dynamic shared memory a block takes (the card's current device)."""
+    from whisper_finetune_torch._build import check
+
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _lib()
+    check(lib, lib.wft_attn_fwd_occupancy(int(with_lse), ctypes.addressof(blocks),
+                                          ctypes.addressof(smem)), "attn_fwd_occupancy")
+    return {"blocks_per_sm": blocks.value, "smem_bytes": smem.value}
 
 
 def attn_bwd(q, k, v, o, do, lse, causal: bool, sm_scale: float):

@@ -43,10 +43,10 @@ SHAPES = {"encoder": (8, 20, 1500, 1500, 0), "cross": (8, 20, 448, 1500, 0),
           "decoder_self": (8, 20, 448, 448, 1)}
 
 
-def variant_sources(source: str) -> dict:
+def variant_sources(source: str, variants: dict = VARIANTS) -> dict:
     """The text of ``csrc/attention.cu`` under each variant's edits."""
     texts = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         text = source
         for old, new in edits:
             if text.count(old) != 1:
@@ -57,12 +57,15 @@ def variant_sources(source: str) -> dict:
     return texts
 
 
-def build(tmp: Path) -> dict:
+def build(tmp: Path, variants: dict = VARIANTS) -> dict:
+    """Each variant of ``csrc/attention.cu`` compiled (all ``nvcc`` runs
+    started together) and loaded, by name."""
     from whisper_finetune_torch import _build
     from whisper_finetune_torch.ops.attention import bind
 
     procs = {}
-    for name, text in variant_sources((_build.CSRC / "attention.cu").read_text()).items():
+    for name, text in variant_sources((_build.CSRC / "attention.cu").read_text(),
+                                      variants).items():
         src, out = tmp / f"{name}.cu", tmp / f"{name}.so"
         src.write_text(text)
         procs[name] = (subprocess.Popen(_build.nvcc_command(src, out), stdout=subprocess.PIPE,
@@ -76,6 +79,31 @@ def build(tmp: Path) -> dict:
     return libs
 
 
+def time_ms(run) -> float:
+    """CUDA events around 10 calls of ``run``, median of 3, after one
+    warm-up call."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        reps.append(start.elapsed_time(end) / 10)
+    return statistics.median(reps)
+
+
+def smi_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
 def main() -> int:
     import torch
 
@@ -84,8 +112,7 @@ def main() -> int:
         return 2
     from whisper_finetune_torch.ops import attention as A
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = smi_line()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
@@ -114,19 +141,7 @@ def main() -> int:
                         if rc != 0:
                             raise RuntimeError(f"wft_attn_bwd ({name}): CUDA error {rc}")
 
-                    run()
-                    torch.cuda.synchronize()
-                    reps = []
-                    for _ in range(3):
-                        start = torch.cuda.Event(enable_timing=True)
-                        end = torch.cuda.Event(enable_timing=True)
-                        start.record()
-                        for _ in range(10):
-                            run()
-                        end.record()
-                        torch.cuda.synchronize()
-                        reps.append(start.elapsed_time(end) / 10)
-                    times[name].append(statistics.median(reps))
+                    times[name].append(time_ms(run))
             result["ms"][site] = times
             print(f"{site} {B}x{H}x{Tq}x{Tk} causal={causal}: "
                   + ", ".join(f"{n} {t[0]:.3f}/{t[1]:.3f} ms" for n, t in times.items()), flush=True)
