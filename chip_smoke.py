@@ -57,6 +57,26 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      no log-sum-exp), no backward kernel launch;
    - ``auto``: the config as shipped (splash at the encoder and cross sites,
      plain decoder self-attention) at 4 + 4 layers, 2 steps.
+5. The model layer, three legs after those (``.pt`` files under the
+   gitignored ``build/chip_smoke/``, removed after use):
+   - ``remat``: the first slice under ``remat_policy`` dots, attn,
+     ``save:enc_mlp_h`` and ``offload:enc_mlp_h`` in turn, each from the
+     main path's weights, batch and SpecAugment draws, 1 warm-up + 2 timed
+     steps, held against the main path (``full``): first loss bit-equal,
+     first-step gradients' per-layer norms within 2%, parameters after one
+     step within 3 lr, launches 128 / 64 / 43
+     a step, the peak over full against what the policy keeps (an offload:
+     within one layer of full, every site's bytes staged to pinned host
+     memory);
+   - ``lora``: ``configs/config_small_lora.yaml`` as shipped, base weights
+     through an fp16 ``.pt`` and ``config.build_model``: launches 384 / 192 a
+     step, base leaves bit-equal after the steps, every adapter B non-zero,
+     merged and runtime-LoRA logits bit-equal, the merge CLI (on the card)
+     from the trained model's float32 ``.pt``: its fp16 file bit-equal to
+     fp16 of the merge;
+   - ``surgery``: ``init_name: whisper-4832`` from a 3.1 GB large-v3 ``.pt``
+     resized to 48 + 32 layers, the first slice's step: launches 160 / 80 / 43
+     a step; the resized model saved and reloaded as fp16 (times of each).
 
 ``--profile`` adds a ``torch.profiler`` window of two main-path steps: device
 time by kernel and group, and the device's busy share of the wall time.
@@ -72,6 +92,7 @@ Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -568,43 +589,25 @@ def time_adamw8(model, opt_state, gen) -> dict:
 # ---------------------------------------------------------------------------
 
 def main_path() -> dict:
-    import numpy as np
     import torch
-    from whisper_finetune_torch.models import ForwardConfig, get_preset_dims, init_params
-    from whisper_finetune_torch.ops.attention import resolve_auto_impls
-    from whisper_finetune_torch.ops.spec_augment import FeaturizeConfig
-    from whisper_finetune_torch.optim import adamw_8bit
-    from whisper_finetune_torch.optim.quantized import BLOCK, QMoment
-    from whisper_finetune_torch.train import TrainState, make_train_step
+    from whisper_finetune_torch.models import get_preset_dims
+    from whisper_finetune_torch.tools import first_slice as fs
 
     dims = get_preset_dims("large-v3")
     B = 8
-    model = init_params(dims, device="cuda", seed=0)
-    leaves = [p for _, p in model.leaves()]
-    tx = adamw_8bit(2e-5, weight_decay=0.01)
-    state = TrainState(model, tx.init(leaves), 0)
-    fcfg = ForwardConfig(compute_dtype="bfloat16", **resolve_auto_impls("cuda"))
-    feat = FeaturizeConfig(n_mels=dims.n_mels, spec_augment=True, p=1.0)
-    step = make_train_step(dims, fcfg, tx, 0.1, feat_cfg=feat, max_grad_norm=1.0,
-                           accum_dtype="bfloat16", device="cuda")
-    rng = np.random.default_rng(0)
-    batch = {
-        "audio": torch.from_numpy((rng.standard_normal((1, B, 480000)) * 0.05).astype(np.float32)),
-        "crop_frames": torch.full((1, B), 3000, dtype=torch.int32),
-        "dec_input": torch.from_numpy(rng.integers(0, dims.n_vocab, (1, B, 448)).astype(np.int64)),
-        "dec_output": torch.from_numpy(rng.integers(0, dims.n_vocab, (1, B, 448)).astype(np.int64)),
-    }
-    batch = {k: v.cuda() for k, v in batch.items()}
+    state, step, tx, fused_leaves = fs.build(dims)
+    paths = [path for path, _ in state.model.leaves()]
+    leaves = [p for _, p in state.model.leaves()]
+    grad_norms = fs.record_grad_norms(tx, paths)  # the first step's, for the remat leg
+    batch = fs.synthetic_batch(dims, batch=B)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     n_params = sum(p.numel() for p in leaves)
-    fused_leaves = sum(isinstance(mu, QMoment) and p.numel() % BLOCK == 0
-                       for p, mu in zip(leaves, state.opt_state.mu))
     before = [p.detach()[(0,) * (p.dim() - 1)][:8].clone() for p in leaves]
     log(f"  large-v3: {n_params} parameters in {len(leaves)} leaves, {fused_leaves} "
         f"through the fused kernel")
 
-    kernels = _reset_counts()
+    kernels = fs.reset_counts()
     losses, times = [], []
     for i in range(WARMUP_STEPS + TIMED_STEPS):
         if i == WARMUP_STEPS:
@@ -619,6 +622,8 @@ def main_path() -> dict:
         if i >= WARMUP_STEPS:
             times.append(dt)
         log(f"  step {i}: loss {loss:.4f}, {dt * 1e3:.1f} ms")
+        if i == 0:  # the parameters after one step, on the host, for the remat leg
+            after_one = [p.detach().cpu() for p in leaves]
     launches = {fn.__name__: fn.launches for fn in kernels}
     peak = torch.cuda.max_memory_allocated()
 
@@ -656,7 +661,7 @@ def main_path() -> dict:
         f"peak {peak / 2**30:.2f} GiB, {rec['achieved_tflops']:.1f} TFLOP/s "
         f"(bench.py accounting, 4x forward)")
     log(f"  launches {launches}")
-    return rec, state, step, batch, gen
+    return rec, state, step, batch, gen, (grad_norms[0], after_one)
 
 
 # ---------------------------------------------------------------------------
@@ -667,31 +672,19 @@ FLAGSHIP_CONFIG = ROOT / "configs" / "config_large_v3_best_muon.yaml"
 TRAIN_STEPS = 1000  # the cosine schedule's horizon (the runs stay in its warm-up)
 
 
-def _reset_counts() -> tuple:
-    from whisper_finetune_torch.models import whisper as W
-    from whisper_finetune_torch.ops import attention as A
-    from whisper_finetune_torch.ops.fused_adamw8 import fused_adamw8_leaf
-
-    kernels = (*A.KERNELS, fused_adamw8_leaf)
-    for fn in kernels:
-        fn.launches = 0
-    W.encoder_forward.blocks_run = W.decoder_forward.blocks_run = 0
-    return kernels
-
-
 def flagship_leg(name: str, attn_impl: str, layers, accum, steps: int, warmup: int,
                  stochastic_depth=None, optimizer_extra=None) -> dict:
     """One leg of the flagship: the shipped config with ``training.attn_impl``
     overridden (``layers``, ``accum``, ``stochastic_depth`` and
     ``optimizer_extra`` cut or vary a leg as its caller says), random weights
     from seed 0, microbatch 8 of synthetic 30 s audio, bf16 accumulator."""
-    import numpy as np
     import torch
     from whisper_finetune_torch import config as C
     from whisper_finetune_torch.models import get_preset_dims, init_params
     from whisper_finetune_torch.models import whisper as W
     from whisper_finetune_torch.optim import get_optimizer, get_schedule
     from whisper_finetune_torch.optim.quantized import BLOCK, QMoment
+    from whisper_finetune_torch.tools import first_slice as fs
     from whisper_finetune_torch.train import TrainState, make_train_step
 
     cfg = C.load_config(FLAGSHIP_CONFIG)
@@ -717,14 +710,7 @@ def flagship_leg(name: str, attn_impl: str, layers, accum, steps: int, warmup: i
     step = make_train_step(dims, fcfg, tx, float(cfg["training"]["label_smoothing"]),
                            feat_cfg=feat, max_grad_norm=cfg["training"]["max_grad_norm"],
                            accum_dtype="bfloat16", device="cuda")
-    rng = np.random.default_rng(0)
-    batch = {
-        "audio": torch.from_numpy((rng.standard_normal((accum, B, 480000)) * 0.05).astype(np.float32)),
-        "crop_frames": torch.full((accum, B), 3000, dtype=torch.int32),
-        "dec_input": torch.from_numpy(rng.integers(0, dims.n_vocab, (accum, B, 448)).astype(np.int64)),
-        "dec_output": torch.from_numpy(rng.integers(0, dims.n_vocab, (accum, B, 448)).astype(np.int64)),
-    }
-    batch = {k: v.cuda() for k, v in batch.items()}
+    batch = fs.synthetic_batch(dims, accum, B)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     before = [p.detach()[(0,) * (p.dim() - 1)][:8].clone() for p in leaves]
@@ -736,7 +722,7 @@ def flagship_leg(name: str, attn_impl: str, layers, accum, steps: int, warmup: i
         f"{fcfg.sd_encoder}, deep SpecAugment {fcfg.dsa_apply}, {tx.labels.count('muon')} Muon + "
         f"{tx.labels.count('adamw')} AdamW leaves ({aux_fused} through fused_adamw8)")
 
-    kernels = _reset_counts()
+    kernels = fs.reset_counts()
     losses, times, lrs = [], [], []
     n_steps = warmup + steps
     for i in range(n_steps):
@@ -821,6 +807,306 @@ def flagship_leg(name: str, attn_impl: str, layers, accum, steps: int, warmup: i
         f"{enc_blocks}+{dec_blocks} of {total_blocks}, optimizer update alone "
         f"{rec['update_s_median'] * 1e3:.1f} ms, launches {launches}")
     del state, step, model, leaves, batch, before, tx
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the model layer: remat policies, LoRA, layer surgery
+# ---------------------------------------------------------------------------
+
+SCRATCH = ROOT / "build" / "chip_smoke"  # .pt files of the legs (gitignored)
+REMAT_POLICIES = ("dots", "attn", "save:enc_mlp_h", "offload:enc_mlp_h")  # against full
+GB = 1e9
+# Device bytes a policy keeps over full: bf16, B=8, T=1500/448, D=1280,
+# F=5120, 32+32 layers (PERF.md §6, the predictions).
+REMAT_KEEPS = {"dots": 32 * 276.5e6 + 32 * 162.4e6, "attn": 32 * 64.2e6,
+               "save:enc_mlp_h": 32 * 122.9e6, "offload:enc_mlp_h": 0.0}
+LAYER_MLP_H = 8 * 1500 * 5120 * 2  # one encoder layer's fc1 output, bf16
+# First-step gradient norms, one per layer of a stacked leaf, against the
+# first slice's: the largest relative difference. dQ's summation order alone
+# moves them by up to 3.2e-3 (full against full) and every policy by up to
+# 3.5e-3 (PERF.md §6); a site lost in one layer moves that layer's norms
+# by O(1) (fc2's weight gradient is fc1's output through the GELU;
+# tests/test_torch_remat.py plants such a fault: > 0.5).
+GRAD_NORM_TOL = 2e-2
+# Parameters after one step against the first slice's: the first 8-bit
+# AdamW update is about lr·sign(g) per element, so two updates differ by up
+# to 2 lr whatever the gradients (measured, PERF.md §6: 3.986e-5 for full
+# against full and every policy alike). This bounds the update; the
+# gradients are held by GRAD_NORM_TOL.
+REMAT_PARAM_TOL = 3 * 2e-5
+
+
+def _param_diff(model, reference) -> dict:
+    """Largest |p - ref| over all leaves and the count of elements that
+    differ (the reference on the host, one leaf at a time to the card)."""
+    worst, n_diff, n = 0.0, 0, 0
+    for (_, p), ref in zip(model.leaves(), reference):
+        d = (p.detach() - ref.to(p.device)).abs()
+        worst = max(worst, d.max().item())
+        n_diff += int((d > 0).sum().item())
+        n += d.numel()
+    return {"max_abs": worst, "n_diff": n_diff, "n": n}
+
+
+def remat_leg(main_rec: dict, full_first_step, batch) -> dict:
+    """The first slice (large-v3, batch 8, splash, 8-bit AdamW) under each
+    remat policy in turn, from the main path's weights, batch and SpecAugment
+    draws: 1 warm-up + 2 timed steps each. Held against the main path's
+    ``full`` run: the first loss bit-equal, the first step's gradients
+    (per-layer norms within GRAD_NORM_TOL) and parameters (within
+    REMAT_PARAM_TOL), the launches a step
+    (128 / 64 / 43), and the peak moving by what the policy keeps (an offload
+    stays within one layer's fc1 output of full on the device and stages it
+    all to the host)."""
+    import torch
+    from whisper_finetune_torch.models import get_preset_dims
+    from whisper_finetune_torch.ops.remat import offload_to_host
+    from whisper_finetune_torch.tools import first_slice as fs
+
+    dims = get_preset_dims("large-v3")
+    full_peak = main_rec["peak_mem_bytes"]
+    full_norms, after_one = full_first_step
+    out = {}
+    for policy in REMAT_POLICIES:
+        state, step, tx, fused = fs.build(dims, policy)
+        norms = fs.record_grad_norms(tx, [path for path, _ in state.model.leaves()])
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        offload_to_host.bytes = 0
+        params = {}
+        state, rec = fs.run_steps(f"remat {policy}", step, state, batch, gen, 1, 2, log=log,
+                                  after_first=lambda st: params.update(
+                                      _param_diff(st.model, after_one)))
+        grad_diff = fs.norms_rel_diff(norms[0], full_norms)
+        rec.update(policy=policy, grad_norm_rel_diff=grad_diff, param_diff_after_one=params,
+                   offloaded_bytes_per_step=offload_to_host.bytes / 3,
+                   peak_over_full_bytes=rec["peak_mem_bytes"] - full_peak)
+        out[policy] = rec
+        del state, step, tx
+        torch.cuda.empty_cache()
+        sites = dims.n_audio_layer + dims.n_text_layer
+        expect = {"attn_fwd": 2 * sites * 3, "attn_bwd": sites * 3, "fused_adamw8_leaf": fused * 3}
+        if rec["launches"] != expect:
+            raise AssertionError(f"[remat {policy}] launches {rec['launches']} != {expect}")
+        if rec["losses"][0] != main_rec["losses"][0]:
+            raise AssertionError(f"[remat {policy}] first loss {rec['losses'][0]!r} != the first "
+                                 f"slice's {main_rec['losses'][0]!r}")
+        if not (grad_diff <= GRAD_NORM_TOL and params["max_abs"] <= REMAT_PARAM_TOL
+                and all(math.isfinite(x) for x in rec["losses"])):
+            raise AssertionError(f"[remat {policy}] first-step gradient norms differ from full's "
+                                 f"by {grad_diff} (limit {GRAD_NORM_TOL}), parameters after one "
+                                 f"step by {params} (limit {REMAT_PARAM_TOL}) or losses "
+                                 f"{rec['losses']}")
+        delta, keeps = rec["peak_over_full_bytes"], REMAT_KEEPS[policy]
+        log(f"  [remat {policy}] median {rec['step_s_median'] * 1e3:.1f} ms vs full "
+            f"{main_rec['step_s_median'] * 1e3:.1f} ms, peak {rec['peak_mem_bytes'] / 2**30:.2f} "
+            f"GiB, over full {delta / GB:+.3f} GB (predicted {keeps / GB:+.3f}), offloaded "
+            f"{rec['offloaded_bytes_per_step'] / GB:.3f} GB a step, first-step gradient norms "
+            f"vs full: max rel diff {grad_diff:.3e}; params after one step: max |d| "
+            f"{params['max_abs']:.3e} in {params['n_diff']} of {params['n']}")
+        # Measured (PERF.md §6): each kept policy 0.13-0.15 GB under its
+        # reckoning (full's own peak holds one layer's recompute), offload
+        # 2 MB under full; the limit is two layers' fc1 output either way.
+        ok = abs(delta - keeps) <= 2 * LAYER_MLP_H
+        if policy.startswith("offload:"):
+            ok = (abs(delta) <= LAYER_MLP_H
+                  and rec["offloaded_bytes_per_step"] >= 32 * LAYER_MLP_H)
+        if not ok:
+            raise AssertionError(f"[remat {policy}] peak over full {delta / GB:.3f} GB, "
+                                 f"offloaded {rec['offloaded_bytes_per_step'] / GB:.3f} GB a "
+                                 f"step: not what the policy keeps ({keeps / GB:.3f} GB)")
+    return out
+
+
+LORA_CONFIG = ROOT / "configs" / "config_small_lora.yaml"
+
+
+def lora_leg() -> dict:
+    """``configs/config_small_lora.yaml`` as shipped (whisper-small, rank 16,
+    alpha 32, dropout 0, batch 2 x accumulation 8, float32 AdamW lr 1e-3,
+    cosine, ``attn_impl: auto``), random base weights written as an fp16
+    ``.pt`` and read back through ``config.build_model`` (``load_model`` of
+    the path); 1 warm-up + 2 timed steps. Asserted: launches 384 / 192 / 0 a
+    step, base leaves bit-equal after the steps, every adapter B non-zero,
+    merged and runtime-LoRA logits bit-equal in one eval forward, and the
+    merge CLI's fp16 file (the trained model saved in float32, merged on the
+    card) equal to fp16 of that forward's merge, bit for bit."""
+    import torch
+    from whisper_finetune_torch import config as C
+    from whisper_finetune_torch.models import (forward_impl, get_preset_dims, init_params,
+                                               load_checkpoint, save_checkpoint)
+    from whisper_finetune_torch.models.lora import merge_lora
+    from whisper_finetune_torch.models.whisper import flatten
+    from whisper_finetune_torch.ops.spec_augment import featurize_impl
+    from whisper_finetune_torch.optim import get_optimizer, get_schedule
+    from whisper_finetune_torch.scripts.merge_lora_weights import main as merge_cli
+    from whisper_finetune_torch.tools import first_slice as fs
+    from whisper_finetune_torch.train import TrainState, make_train_step, trainable_leaves
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: a@b would not be float32")
+    cfg = C.load_config(LORA_CONFIG)
+    base_dims = get_preset_dims(cfg["model"]["init_name"])
+    base_path = SCRATCH / "small.pt"
+    save_checkpoint(str(base_path), init_params(base_dims, device="cuda", seed=0), base_dims)
+    cfg["model"]["init_name"] = str(base_path)
+    model, dims = C.build_model(cfg, device="cuda")
+    lcfg = C._lora_hparams(cfg["model"]["lora_config"])
+    fcfg = C.build_forward_config(cfg, is_lora_run=True, device="cuda")
+    feat = C.build_featurize_config(cfg, dims.n_mels)
+    t = cfg["training"]
+    accum, B = int(t["accum_grad_steps"]), int(cfg["dataset"]["batch_size"])
+    schedule = get_schedule(cfg["lr_scheduler"], TRAIN_STEPS)
+    tx, _ = get_optimizer(trainable_leaves(model), cfg["optimizer"], schedule, is_lora_run=True)
+    state = TrainState(model, tx.init([p for _, p in trainable_leaves(model)]), 0)
+    step = make_train_step(dims, fcfg, tx, float(t["label_smoothing"]), feat_cfg=feat,
+                           max_grad_norm=t["max_grad_norm"], accum_dtype=t["grad_accum_dtype"],
+                           device="cuda")
+    batch = fs.synthetic_batch(dims, accum, B, seed=1)
+    base = {path: p.detach().clone() for path, p in model.leaves() if not p.requires_grad}
+    n_lora = len(trainable_leaves(model))
+    log(f"  [lora] small {dims.n_audio_layer}+{dims.n_text_layer} layers, rank {lcfg['rank']}, "
+        f"alpha {lcfg['alpha']}, scale {fcfg.lora_scale}, {n_lora} adapter leaves "
+        f"({sum(p.numel() for _, p in trainable_leaves(model))} parameters) of "
+        f"{len(model.leaves())}, attn {fcfg.enc_attn}/{fcfg.dec_attn}/{fcfg.cross_attn}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state, rec = fs.run_steps("lora", step, state, batch, gen, 1, 2, log=log)
+
+    sites = dims.n_audio_layer + dims.n_text_layer
+    expect = {"attn_fwd": 2 * sites * accum * 3, "attn_bwd": sites * accum * 3,
+              "fused_adamw8_leaf": 0}
+    if rec["launches"] != expect:
+        raise AssertionError(f"[lora] launches {rec['launches']} != {expect}")
+    if abs(rec["losses"][0] - math.log(dims.n_vocab)) > 0.5:
+        raise AssertionError(f"[lora] first loss {rec['losses'][0]} far from ln(V)")
+    params = dict(model.leaves())
+    if not all(torch.equal(params[path], b) for path, b in base.items()):
+        raise AssertionError("[lora] a frozen base leaf moved")
+    zero_b = [path for path, p in trainable_leaves(model) if path[-1] == "b"
+              and not bool((p.detach() != 0).any())]
+    if zero_b:
+        raise AssertionError(f"[lora] adapters B still zero: {zero_b[:3]}")
+
+    # One eval forward: runtime LoRA against the merged model.
+    with torch.no_grad():
+        mel = featurize_impl(batch["audio"][0], batch["crop_frames"][0], None, feat)
+        tok = batch["dec_input"][0]
+        runtime = forward_impl(model.params(), mel, tok, dims, fcfg)
+        merged = merge_lora(model.params(), lcfg["rank"], lcfg["alpha"])
+        plain = dataclasses.replace(fcfg, lora_scale=0.0, lora_dropout=0.0)
+        merged_logits = forward_impl(merged, mel, tok, dims, plain)
+    if not torch.equal(runtime, merged_logits):
+        raise AssertionError(f"[lora] merged logits differ from runtime LoRA by "
+                             f"{(runtime - merged_logits).abs().max().item()}")
+
+    # The merge CLI, on the card, from the trained model saved in float32.
+    lora_path, merged_path = SCRATCH / "small_lora.pt", SCRATCH / "small_merged.pt"
+    save_checkpoint(str(lora_path), model, dims, dtype=torch.float32)
+    t0 = time.perf_counter()
+    merge_cli(str(lora_path), str(merged_path), test_merge=True, rank=lcfg["rank"],
+              alpha=lcfg["alpha"])
+    cli_s = time.perf_counter() - t0
+    raw = torch.load(merged_path, weights_only=True)
+    reloaded, rdims = load_checkpoint(str(merged_path), device="cuda")
+    if rdims != dims or any(v.dtype != torch.float16 for v in raw["model_state_dict"].values()):
+        raise AssertionError(f"[lora] merged file dims {rdims} or dtypes wrong")
+    mism = [path for (path, a), (_, b) in zip(reloaded.leaves(), flatten(merged))
+            if not torch.equal(a, b.half().float())]
+    if mism:
+        raise AssertionError(f"[lora] merged file differs from fp16 of the card's merge at "
+                             f"{mism[:3]}")
+    for f in (base_path, lora_path, merged_path):
+        f.unlink()
+    rec.update(merge_cli_s=cli_s, merged_file_bit_equal=True, adapter_leaves=n_lora,
+               layers=[dims.n_audio_layer, dims.n_text_layer], microbatch=B, accum=accum,
+               logits_bit_equal=True)
+    log(f"  [lora] median {rec['step_s_median'] * 1e3:.1f} ms, peak "
+        f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB, launches {rec['launches']}; merged logits "
+        f"bit-equal; merge CLI {cli_s:.1f} s, its fp16 file bit-equal to fp16(merge)")
+    del state, step, model, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def surgery_leg(batch) -> dict:
+    """``init_name: whisper-4832``: a random large-v3 written as an fp16
+    ``.pt`` (3.1 GB) into ``$WHISPER_CHECKPOINT_DIR``, read through
+    ``config.build_model`` (``load_model`` of the base, then resized to 48
+    encoder and 32 decoder layers), then the first slice's step (batch 8,
+    splash, 8-bit AdamW): 1 warm-up + 2 timed steps. Asserted: launches
+    160 / 80 / 43 a step; the resized model saves and reloads as an fp16
+    ``.pt`` with 48 encoder layers, equal to its fp16 rounding."""
+    import os
+
+    import torch
+    from whisper_finetune_torch import config as C
+    from whisper_finetune_torch.models import (get_preset_dims, init_params, load_checkpoint,
+                                               save_checkpoint)
+    from whisper_finetune_torch.tools import first_slice as fs
+
+    base_dims = get_preset_dims("large-v3")
+    base_path = SCRATCH / "large-v3.pt"
+    model = init_params(base_dims, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(base_path), model, base_dims)
+    write_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    os.environ["WHISPER_CHECKPOINT_DIR"] = str(SCRATCH)
+    try:
+        t0 = time.perf_counter()
+        model, dims = C.build_model(C.with_defaults({"model": {"init_name": "whisper-4832"}}),
+                                    device="cuda")
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+    finally:
+        del os.environ["WHISPER_CHECKPOINT_DIR"]
+    file_gb = base_path.stat().st_size / GB
+    base_path.unlink()
+    if (dims.n_audio_layer, dims.n_text_layer) != (48, 32):
+        raise AssertionError(f"[surgery] resized to {dims}")
+    state, step, _, fused = fs.build(dims, model=model)
+    log(f"  [surgery] whisper-4832: {sum(p.numel() for _, p in model.leaves())} parameters, "
+        f"{dims.n_audio_layer}+{dims.n_text_layer} layers; large-v3 .pt {file_gb:.2f} GB "
+        f"written in {write_s:.1f} s, read and resized in {read_s:.1f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state, rec = fs.run_steps("surgery", step, state, batch, gen, 1, 2, log=log)
+    sites = dims.n_audio_layer + dims.n_text_layer
+    expect = {"attn_fwd": 2 * sites * 3, "attn_bwd": sites * 3, "fused_adamw8_leaf": fused * 3}
+    if rec["launches"] != expect or fused != 43:
+        raise AssertionError(f"[surgery] launches {rec['launches']} != {expect}")
+    if not all(math.isfinite(x) for x in rec["losses"]) or abs(
+            rec["losses"][0] - math.log(dims.n_vocab)) > 0.5:
+        raise AssertionError(f"[surgery] losses {rec['losses']}")
+
+    resized_path = SCRATCH / "whisper-4832.pt"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(resized_path), model, dims)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, bdims = load_checkpoint(str(resized_path), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    resized_gb = resized_path.stat().st_size / GB
+    resized_path.unlink()
+    if bdims != dims or bdims.n_audio_layer != 48:
+        raise AssertionError(f"[surgery] reloaded dims {bdims}")
+    if not all(torch.equal(b, a.detach().half().float())
+               for (_, a), (_, b) in zip(model.leaves(), back.leaves())):
+        raise AssertionError("[surgery] reloaded weights differ from fp16(weights)")
+    rec.update(layers=[48, 32], base_pt_gb=file_gb, base_write_s=write_s,
+               base_read_resize_s=read_s, resized_pt_gb=resized_gb, resized_write_s=save_s,
+               resized_read_s=load_s)
+    log(f"  [surgery] median {rec['step_s_median'] * 1e3:.1f} ms, peak "
+        f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB, launches {rec['launches']}; resized .pt "
+        f"{resized_gb:.2f} GB written in {save_s:.1f} s, read in {load_s:.1f} s")
+    del state, step, model, back
     torch.cuda.empty_cache()
     return rec
 
@@ -919,6 +1205,9 @@ def print_result(kernels: list) -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
+T_START = time.perf_counter()
+
+
 def main() -> int:
     try:
         import torch
@@ -977,7 +1266,7 @@ def main() -> int:
         return 0
 
     log("main path:")
-    main_rec, state, step, batch, step_gen = main_path()
+    main_rec, state, step, batch, step_gen, full_first_step = main_path()
     if "--profile" in sys.argv[1:]:
         main_rec["profile"] = profile_steps(step, state, batch, step_gen)
     log("fused_adamw8 vs plain twin on large-v3's own leaves and state:")
@@ -989,7 +1278,7 @@ def main() -> int:
 
     # The first slice's model and state go before the flagship legs, so that
     # each leg's peak memory is its own.
-    del state, step, batch, step_gen
+    del state, step, step_gen
     torch.cuda.empty_cache()
     log("Muon flagship (configs/config_large_v3_best_muon.yaml):")
     legs = {
@@ -1014,8 +1303,26 @@ def main() -> int:
                           "launches": leg["launches"], "blocks_run": leg["blocks_run"]}),
               flush=True)
 
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    log("remat policies on the first slice:")
+    remat = remat_leg(main_rec, full_first_step, batch)
+    del full_first_step
+    log("LoRA (configs/config_small_lora.yaml):")
+    lora = lora_leg()
+    log("layer surgery (init_name whisper-4832):")
+    surgery = surgery_leg(batch)
+    new_legs = {**{f"remat {k}": v for k, v in remat.items()}, "lora": lora, "surgery": surgery}
+    for name, leg in new_legs.items():
+        print(json.dumps({"leg": name, "step_ms_median": leg["step_s_median"] * 1e3,
+                          "step_ms_all": [t * 1e3 for t in leg["step_s_all"]],
+                          "peak_gib": leg["peak_mem_bytes"] / 2**30,
+                          "peak_over_full_gb": (leg["peak_over_full_bytes"] / GB
+                                                if "peak_over_full_bytes" in leg else None),
+                          "launches": leg["launches"]}), flush=True)
+
     per_step = main_rec["launches_per_step"]
-    by_leg = {"splash_adamw8": main_rec["launches"], **{k: v["launches"] for k, v in legs.items()}}
+    by_leg = {"splash_adamw8": main_rec["launches"], **{k: v["launches"] for k, v in legs.items()},
+              **{k: v["launches"] for k, v in new_legs.items()}}
     kernels = attention_entries(enc, cross, dec_self, attn_err, repeatable, fwd_res, by_leg,
                                 per_step)
     kernels.append({
@@ -1036,11 +1343,13 @@ def main() -> int:
               {"encoder": enc, "cross": cross, "decoder_self": dec_self,
                "decoder_self_routes": dec_route}, "adamw8_timing": adam_t,
               "adamw8_check": adam, "attn_bwd_repeatable": repeatable,
-              "main_path": main_rec, "flagship_legs": legs}
+              "main_path": main_rec, "flagship_legs": legs, "model_layer_legs": new_legs,
+              "seconds": time.perf_counter() - T_START}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
 
+    log(f"chip_smoke: {record['seconds']:.1f} s in all")
     print_result(kernels)
     return 0
 

@@ -62,12 +62,12 @@ def test_defaults_match_validate_config(name):
 @pytest.mark.parametrize("name", CONFIGS)
 def test_config_constructors_match_jax(name, jax_finetune):
     raw = _raw(name)
-    raw["model"]["lora"] = False  # LoRA runs raise in the port, below
     raw.setdefault("training", {})["attn_impl"] = "flash_fwd"
     jcfg = validate_config(raw)
     tcfg = tc.with_defaults(raw)
-    jf = jax_finetune.build_forward_config(jcfg, is_lora_run=False)
-    tf = tc.build_forward_config(tcfg, is_lora_run=False, device="cpu")
+    lora = bool(raw["model"].get("lora", False))
+    jf = jax_finetune.build_forward_config(jcfg, is_lora_run=lora)
+    tf = tc.build_forward_config(tcfg, is_lora_run=lora, device="cpu")
     assert dataclasses.asdict(tf) == dataclasses.asdict(jf)
     assert dataclasses.asdict(tc.build_featurize_config(tcfg, 128)) == dataclasses.asdict(
         jax_finetune.build_featurize_config(jcfg, 128))
@@ -90,9 +90,12 @@ def test_flagship_forward_config():
 
 
 def test_lora_run_raises_and_bad_values():
+    """A LoRA run no longer raises: the flagship config's lora_config (rank
+    16, alpha 32, dropout 0.1) gives scale 2.0 and dropout 0.1."""
     cfg = tc.load_config(ROOT / "configs" / "config_large_v3_best_muon.yaml")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        tc.build_forward_config(cfg, is_lora_run=True, device="cpu")
+    f = tc.build_forward_config(cfg, is_lora_run=True, device="cpu")
+    assert (f.lora_scale, f.lora_dropout) == (2.0, 0.1)
+    assert tc.build_forward_config(cfg, is_lora_run=False, device="cpu").lora_scale == 0.0
     for section, key, value, match in (
         ("training", "stochastic_depth", 1.0, "stochastic_depth"),
         ("training", "accum_grad_steps", 0, "accum_grad_steps"),

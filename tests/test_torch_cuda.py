@@ -2,7 +2,7 @@
 shapes (``chip_smoke.py`` holds them at the main path's). Marked ``cuda``:
 they skip where ``torch.cuda.is_available()`` is false. On a card:
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
 
 import numpy as np
@@ -167,3 +167,33 @@ def test_train_step_on_card(card):
         state, loss = step(state, batch)
         losses.append(loss.item())
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("policy", ["dots", "save:enc_mlp_h,dec_ln2", "offload:enc_mlp_h,cross_kv"])
+def test_remat_policies_on_card(card, policy):
+    """A tiny model (width 128, two heads) on the card, bf16, the kernels at
+    the encoder and cross sites: a remat policy gives full's logits bit for
+    bit (its gradients within dq's run-to-run bits), and ``offload:`` stages
+    its sites through pinned host memory."""
+    from whisper_finetune_torch.models import ForwardConfig, init_params
+    from whisper_finetune_torch.models.dims import ModelDimensions
+    from whisper_finetune_torch.ops.remat import offload_to_host
+
+    dims = ModelDimensions(n_mels=16, n_audio_ctx=150, n_audio_state=128, n_audio_head=2,
+                           n_audio_layer=2, n_vocab=300, n_text_ctx=24, n_text_state=128,
+                           n_text_head=2, n_text_layer=2)
+    model = init_params(dims, device="cuda", seed=0)
+    mel = torch.randn((2, 16, 300), generator=card, device="cuda")
+    tok = torch.randint(0, 300, (2, 24), generator=card, device="cuda")
+    leaves = [p for _, p in model.leaves()]
+    outs = []
+    offload_to_host.bytes = 0
+    for pol in ("full", policy):
+        cfg = ForwardConfig(remat_policy=pol, attn_impl_encoder="splash", attn_impl_cross="splash")
+        out = model(mel, tok, cfg, train=True)
+        outs.append((out.detach(), torch.autograd.grad(out.float().square().mean(), leaves)))
+    assert torch.equal(outs[0][0], outs[1][0])
+    for a, b in zip(outs[0][1], outs[1][1]):
+        assert (a.float() - b.float()).abs().max().item() <= 1e-2 * a.abs().max().item() + 1e-6
+    staged = 2 * 150 * 4 * 128 * 2 * 2 + 2 * 2 * 150 * 128 * 2 * 2  # fc1 per enc layer; k, v per dec layer
+    assert offload_to_host.bytes == (staged if policy.startswith("offload") else 0)

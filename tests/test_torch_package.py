@@ -40,7 +40,10 @@ def test_port_imports_no_jax():
         "whisper_finetune_torch.train, whisper_finetune_torch.ops.fused_adamw8, "
         "whisper_finetune_torch._build, whisper_finetune_torch.config, "
         "whisper_finetune_torch.optim.muon, whisper_finetune_torch.optim.optimizers, "
-        "whisper_finetune_torch.optim.schedulers, whisper_finetune_torch.optim.state_bridge\n"
+        "whisper_finetune_torch.optim.schedulers, whisper_finetune_torch.optim.state_bridge, "
+        "whisper_finetune_torch.models.lora, whisper_finetune_torch.models.surgery, "
+        "whisper_finetune_torch.ops.remat, whisper_finetune_torch.scripts.merge_lora_weights, "
+        "whisper_finetune_torch.tools.first_slice, whisper_finetune_torch.tools.remat_policies\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'whisper_finetune_tpu')]\n"
         "print(bad)\n"
@@ -157,8 +160,24 @@ def test_init_distributions():
     ("lora_dropout", 0.1),
 ])
 def test_unported_forward_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ForwardConfig(**{field: value}).check_supported()
+    """Once refused, these options now run: a remat policy gives full
+    remat's logits and gradients bit for bit, and LoRA switches on a model
+    without adapters give the plain forward's (tests/test_torch_remat.py and
+    test_torch_lora.py hold them against JAX)."""
+    ForwardConfig(**{field: value}).check_supported()
+    dims = _torch_dims(DIMS)
+    model = init_params(dims, device="cpu", seed=1)
+    rng = np.random.default_rng(0)
+    mel = torch.from_numpy(rng.standard_normal((1, 16, 300)).astype(np.float32))
+    tok = torch.from_numpy(rng.integers(0, 300, (1, 24)))
+    outs = []
+    for cfg in (ForwardConfig(compute_dtype="float32"),
+                ForwardConfig(compute_dtype="float32", **{field: value})):
+        out = model(mel, tok, cfg, train=True, generator=torch.Generator().manual_seed(0))
+        grads = torch.autograd.grad(out.square().sum(), [p for _, p in model.leaves()])
+        outs.append((out.detach(), grads))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
 
 
 @pytest.mark.parametrize("field,value", [

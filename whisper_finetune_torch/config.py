@@ -6,8 +6,9 @@ written for it run unmodified): :func:`with_defaults` fills the sections the
 functions and the optimizer factory read (``training``, ``augmentation``,
 ``optimizer``, ``lr_scheduler``, ``model``) and checks their values;
 :func:`build_forward_config` and :func:`build_featurize_config` are the
-ones of ``scripts/finetune.py``. The dataset section and the training
-script itself are not ported yet.
+ones of ``scripts/finetune.py``, and :func:`build_model` is that script's
+model section (base checkpoint, layer surgery, LoRA, frozen leaves). The
+dataset section and the training script itself are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +16,11 @@ from __future__ import annotations
 import copy
 from typing import Any, Dict, Optional
 
-from whisper_finetune_torch.models.whisper import ForwardConfig
+import torch
+
+from whisper_finetune_torch._device import resolve_device
+from whisper_finetune_torch.models.lora import lora_scale
+from whisper_finetune_torch.models.whisper import ForwardConfig, Whisper
 from whisper_finetune_torch.ops.attention import resolve_auto_impls
 from whisper_finetune_torch.ops.spec_augment import FeaturizeConfig
 
@@ -46,8 +51,8 @@ _TRAINING_DEFAULTS: Dict[str, Any] = {
     "split_optimizer_step": "auto",
     "manual_backward": "auto",
     "manual_precast_weights": False,
-    # Rematerialization policy inside checkpointed blocks; the port runs
-    # "full" so far.
+    # Rematerialization policy inside checkpointed blocks: full, dots, attn,
+    # save:<sites>, offload:<sites> (ops/remat.py).
     "remat_policy": "full",
     # "auto" picks the per-site mix for the device (ops/attention.py
     # resolve_auto_impls); explicit: "xla", "flash", "splash", "flash_fwd".
@@ -210,11 +215,6 @@ def build_forward_config(config: Dict, is_lora_run: bool, device="cuda") -> Forw
     sd_encoder = 0.0 if t["train_only_decoder"] else sd
     sd_decoder = 0.0 if t["train_only_encoder"] else sd
     lora_cfg = _lora_hparams(config["model"].get("lora_config", {}) or {})
-    if is_lora_run:
-        raise NotImplementedError(
-            f"LoRA runs (rank {lora_cfg['rank']}, alpha {lora_cfg['alpha']}) are not "
-            "ported yet: ROADMAP queue 1, item 8"
-        )
     attn_impl = str(t.get("attn_impl", "auto"))
     attn_kwargs = (resolve_auto_impls(device) if attn_impl == "auto"
                    else {"attn_impl": attn_impl})
@@ -232,8 +232,47 @@ def build_forward_config(config: Dict, is_lora_run: bool, device="cuda") -> Forw
         dsa_freq_mask_param=int(dsa["freq_mask_param"]),
         dsa_p=float(dsa.get("p", 1.0)),
         dsa_layer_indices=(tuple(dsa["layer_indices"]) if dsa.get("layer_indices") else None),
+        lora_scale=lora_scale(lora_cfg["rank"], lora_cfg["alpha"]) if is_lora_run else 0.0,
+        lora_dropout=lora_cfg["dropout"] if is_lora_run else 0.0,
         **attn_kwargs,
     )
+
+
+def build_model(config: Dict, device="cuda"):
+    """The run's model, built as the training script builds it: the base
+    checkpoint of ``model.init_name`` through ``load_model`` (a preset such
+    as ``whisper-4832`` names its base and layer counts:
+    ``resolve_model_architecture``), resized, LoRA adapters where
+    ``model.lora`` (A drawn from a generator seeded with ``config["seed"]``),
+    and the frozen leaves of LoRA and ``train_only_*`` marked
+    (``requires_grad=False``). Returns (model, dims); the optimizer takes
+    ``train.trainable_leaves(model)``."""
+    from whisper_finetune_torch.models.checkpoint import load_model
+    from whisper_finetune_torch.models.lora import apply_lora
+    from whisper_finetune_torch.models.surgery import (resize_whisper_layers,
+                                                       resolve_model_architecture)
+    from whisper_finetune_torch.train.step import build_trainable_mask, mark_trainable
+
+    dev = resolve_device(device)
+    arch = resolve_model_architecture(config["model"])
+    if arch["base_init_name"] != arch["init_name"]:
+        print(f"Model alias '{arch['init_name']}' resolved to base model "
+              f"'{arch['base_init_name']}'.")
+    model, dims = load_model(arch["base_init_name"], dev)
+    params, dims, _ = resize_whisper_layers(model.params(), dims, arch["encoder_layers"],
+                                            arch["decoder_layers"])
+    t = config["training"]
+    lora_mask = None
+    if config["model"].get("lora"):
+        h = _lora_hparams(config["model"].get("lora_config") or {})
+        gen = torch.Generator(device=dev).manual_seed(int(config.get("seed", 0)))
+        params, lora_mask = apply_lora(
+            params, rank=h["rank"], alpha=h["alpha"], dropout=h["dropout"],
+            encoder_only=bool(t["train_only_encoder"]),
+            decoder_only=bool(t["train_only_decoder"]), generator=gen)
+    model = Whisper(dims, params)
+    mark_trainable(model.params(), build_trainable_mask(params, t, lora_mask))
+    return model, dims
 
 
 def build_featurize_config(config: Dict, n_mels: int) -> FeaturizeConfig:

@@ -21,12 +21,21 @@ so only one layer's bf16 copies are live: ``_cast_block_slice``).
 
 Precision policy: parameters float32, matmuls and convs in ``compute_dtype``,
 layer norms and softmax in float32, the tied logits stored in the compute
-dtype and then upcast. ``remat_policy="full"`` is
-``torch.utils.checkpoint`` (non-reentrant) around each block.
+dtype and then upcast. A projection with a bias is one ``addmm`` (the bias
+joins in the product's epilogue, one rounding to the compute dtype).
 
-Randomness of a training forward (stochastic depth, deep SpecAugment) is a
-:class:`ForwardDraws`: every uniform number of the forward, drawn at once by
-:func:`draw_forward` and held on the host. The layer loop reads the coins as
+Rematerialisation: each checkpointed block runs under
+``torch.utils.checkpoint`` (non-reentrant); ``remat_policy`` other than
+``full`` keeps the named sites of JAX's forward (``enc_qkv``, ``cross_kv``,
+``enc_mlp_h``, ``dec_ln2``, ``attn_probs``, ...) through
+:mod:`whisper_finetune_torch.ops.remat`. LoRA adapters (``<kernel>_lora``
+leaves, :mod:`whisper_finetune_torch.models.lora`) are folded into their
+float32 kernels inside the checkpointed block, so the recompute folds them
+again; a LoRA forward casts weights at use instead of precasting them.
+
+Randomness of a training forward (stochastic depth, deep SpecAugment, LoRA
+dropout) is a :class:`ForwardDraws`: every uniform number of the forward,
+drawn at once by :func:`draw_forward` and held on the host. The layer loop reads the coins as
 Python floats (a skipped layer runs nothing and syncs nothing) and the masks
 are built from them outside the checkpointed blocks, so a recompute sees
 exactly the forward's values. The layout is the JAX package's
@@ -54,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 from whisper_finetune_torch._device import resolve_device
 from whisper_finetune_torch.models.dims import ModelDimensions
 from whisper_finetune_torch.ops.attention import attention
+from whisper_finetune_torch.ops.remat import named, parse_remat_policy
 
 Params = Dict[str, Any]
 
@@ -64,9 +74,9 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class ForwardConfig:
-    """The JAX ``ForwardConfig`` fields. Values the port does not run yet
-    (``remat_policy`` other than ``full``, LoRA) raise
-    ``NotImplementedError`` from :meth:`check_supported`."""
+    """The JAX ``ForwardConfig`` fields (``remat_policy``: the grammar of
+    :mod:`whisper_finetune_torch.ops.remat`; ``lora_scale`` 0 leaves any
+    adapters inert)."""
 
     compute_dtype: str = "bfloat16"
     remat_encoder: bool = True
@@ -104,9 +114,15 @@ class ForwardConfig:
                 else self.stochastic_depth_decoder)
 
     @property
+    def lora_draws(self) -> bool:
+        """Whether a training forward draws LoRA dropout masks."""
+        return bool(self.lora_scale and self.lora_dropout > 0.0)
+
+    @property
     def needs_draws(self) -> bool:
         """Whether a training forward draws random numbers."""
-        return bool(self.sd_encoder > 0.0 or self.sd_decoder > 0.0 or self.dsa_apply)
+        return bool(self.sd_encoder > 0.0 or self.sd_decoder > 0.0 or self.dsa_apply
+                    or self.lora_draws)
 
     @property
     def enc_attn(self) -> str:
@@ -121,15 +137,9 @@ class ForwardConfig:
         return self.attn_impl_cross or self.attn_impl
 
     def check_supported(self) -> None:
-        if self.remat_policy != "full":
-            raise NotImplementedError(
-                f"ForwardConfig remat_policy {self.remat_policy!r} is not ported yet: "
-                "ROADMAP queue 1, item 3 (the remat grammar)"
-            )
-        if self.lora_scale or self.lora_dropout:
-            raise NotImplementedError(
-                "ForwardConfig LoRA is not ported yet: ROADMAP queue 1, item 8"
-            )
+        """Raise ``ValueError`` for a ``remat_policy`` outside the grammar
+        (JAX raises the same errors when it traces a rematted block)."""
+        parse_remat_policy(self.remat_policy)
 
 
 def dsa_layer_flags(fcfg: ForwardConfig, n_layers: int) -> np.ndarray:
@@ -155,29 +165,51 @@ class ForwardDraws:
 
     A layer is skipped where its coin is below the stochastic-depth rate;
     deep SpecAugment is on where ``dsa_gate`` is below ``dsa_p``; the mask
-    pairs are [width, start] draws (see :func:`axis_keep_masks`)."""
+    pairs are [width, start] draws (see :func:`axis_keep_masks`). With LoRA
+    dropout, an adapter's A keeps an input row where its draw is below
+    ``1 - lora_dropout``: one draw per input row of each adapted kernel of a
+    layer, the kernels in the block's sorted order (:func:`lora_draw_width`
+    a layer)."""
 
     enc_coin: np.ndarray  # (n_audio_layer,)
     dec_coin: np.ndarray  # (n_text_layer,)
     dsa_gate: float
     dsa_time: np.ndarray  # (n_audio_layer, 2)
     dsa_feat: np.ndarray  # (n_audio_layer, 2)
+    enc_lora: Optional[np.ndarray] = None  # (n_audio_layer, lora_draw_width)
+    dec_lora: Optional[np.ndarray] = None  # (n_text_layer, lora_draw_width)
+
+
+def lora_draw_width(d: int, cross: bool) -> int:
+    """LoRA dropout draws a layer: the input rows of every block linear (q,
+    k, v, out and fc1 take d, fc2 takes 4d; the decoder adds cross q, k, v,
+    out)."""
+    return (13 if cross else 9) * d
 
 
 def draw_forward(generator: Optional[torch.Generator], dims: ModelDimensions,
-                 device, n: int = 1) -> List[ForwardDraws]:
+                 device, n: int = 1, lora: bool = False) -> List[ForwardDraws]:
     """Draws for ``n`` forwards from ``generator`` (on ``device``): one
-    ``torch.rand`` and one transfer to the host for all of them."""
+    ``torch.rand`` and one transfer to the host for all of them; with
+    ``lora``, a second one for the LoRA dropout draws."""
     Le, Ld = dims.n_audio_layer, dims.n_text_layer
     per = 5 * Le + Ld + 1
     u = torch.rand((n, per), generator=generator, device=device).cpu().numpy()
+    enc_lora = dec_lora = [None] * n
+    if lora:
+        we = lora_draw_width(dims.n_audio_state, cross=False)
+        wd = lora_draw_width(dims.n_text_state, cross=True)
+        v = torch.rand((n, Le * we + Ld * wd), generator=generator, device=device).cpu().numpy()
+        enc_lora = [r[:Le * we].reshape(Le, we) for r in v]
+        dec_lora = [r[Le * we:].reshape(Ld, wd) for r in v]
     return [
         ForwardDraws(
             enc_coin=r[:Le], dec_coin=r[Le:Le + Ld], dsa_gate=float(r[Le + Ld]),
             dsa_time=r[Le + Ld + 1:3 * Le + Ld + 1].reshape(Le, 2),
             dsa_feat=r[3 * Le + Ld + 1:].reshape(Le, 2),
+            enc_lora=el, dec_lora=dl,
         )
-        for r in u
+        for r, el, dl in zip(u, enc_lora, dec_lora)
     ]
 
 
@@ -341,66 +373,103 @@ def init_params(dims: ModelDimensions, generator: Optional[torch.Generator] = No
 # Core ops
 # ---------------------------------------------------------------------------
 
-def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm in float32, cast back to x's dtype."""
-    y = F.layer_norm(x.float(), (x.shape[-1],), p["scale"].float(), p["bias"].float(), eps)
-    return y.to(x.dtype)
+def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5,
+               name: Optional[str] = None) -> torch.Tensor:
+    """LayerNorm in float32, cast back to x's dtype; the result is the remat
+    site ``name``."""
+    x32, w, b = x.float(), p["scale"].float(), p["bias"].float()
+    if x.dtype == torch.float32:
+        return named(name, F.layer_norm, x32, (x.shape[-1],), w, b, eps)
+    y = F.layer_norm(x32, (x.shape[-1],), w, b, eps)
+    return named(name, y.to, x.dtype)
 
 
 def _dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-           dtype: torch.dtype) -> torch.Tensor:
-    y = torch.matmul(x.to(dtype), w.to(dtype))
-    if b is not None:
-        y = y + b.to(dtype)
-    return y
+           dtype: torch.dtype, name: Optional[str] = None) -> torch.Tensor:
+    """x (..., in) @ w (in, out) [+ b] in ``dtype``: one ``mm`` / ``addmm``,
+    a ``dots`` site and the remat site ``name``."""
+    x2 = x.to(dtype).reshape(-1, x.shape[-1])
+    w = w.to(dtype)
+    if b is None:
+        y = named(name, torch.mm, x2, w, dot=True)
+    else:
+        y = named(name, torch.addmm, b.to(dtype), x2, w, dot=True)
+    return y.view(*x.shape[:-1], w.shape[-1])
 
 
 def multi_head_attention(x: torch.Tensor, kv: torch.Tensor, p: Params, n_head: int,
                          dtype: torch.dtype, causal: bool = False,
-                         impl: str = "xla") -> torch.Tensor:
+                         impl: str = "xla", probs_name: str = "attn_probs",
+                         site: str = "enc") -> torch.Tensor:
     """Whisper MHA: q/k/v projections, attention with sm_scale = d_head**-0.5
-    (``impl`` picks the plain path or the kernels), output projection."""
+    (``impl`` picks the plain path or the kernels), output projection. The
+    projections are the remat sites ``{site}_qkv``, or ``cross_q`` and
+    ``cross_kv`` for ``site="cross"``; ``probs_name`` names the plain path's
+    probabilities."""
     B, T, d = x.shape
     S = kv.shape[1]
     d_head = d // n_head
-    q = _dense(x, p["q_w"], p["q_b"], dtype).view(B, T, n_head, d_head)
-    k = _dense(kv, p["k_w"], None, dtype).view(B, S, n_head, d_head)
-    v = _dense(kv, p["v_w"], p["v_b"], dtype).view(B, S, n_head, d_head)
+    q_name, kv_name = ("cross_q", "cross_kv") if site == "cross" else (f"{site}_qkv",) * 2
+    q = _dense(x, p["q_w"], p["q_b"], dtype, q_name).view(B, T, n_head, d_head)
+    k = _dense(kv, p["k_w"], None, dtype, kv_name).view(B, S, n_head, d_head)
+    v = _dense(kv, p["v_w"], p["v_b"], dtype, kv_name).view(B, S, n_head, d_head)
     o = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                  causal=causal, sm_scale=float(d_head) ** -0.5, impl=impl)
+                  causal=causal, sm_scale=float(d_head) ** -0.5, impl=impl,
+                  probs_name=probs_name)
     o = o.transpose(1, 2).reshape(B, T, d).to(dtype)
     return _dense(o, p["o_w"], p["o_b"], dtype)
 
 
-def _mlp(x: torch.Tensor, p: Params, dtype: torch.dtype) -> torch.Tensor:
-    h = F.gelu(_dense(x, p["fc1_w"], p["fc1_b"], dtype))  # exact erf GELU
+def _mlp(x: torch.Tensor, p: Params, dtype: torch.dtype, site: str = "enc") -> torch.Tensor:
+    # fc1's output (the GELU input) is the remat site {site}_mlp_h
+    h = F.gelu(_dense(x, p["fc1_w"], p["fc1_b"], dtype, f"{site}_mlp_h"))  # exact erf GELU
     return _dense(h, p["fc2_w"], p["fc2_b"], dtype)
+
+
+def _with_lora(bp: Params, fcfg: ForwardConfig, lora_keep: Optional[torch.Tensor]) -> Params:
+    """The layer's kernels with its adapters folded in (float32, inside the
+    checkpointed block), where the forward runs LoRA."""
+    if not fcfg.lora_scale:
+        return bp
+    from whisper_finetune_torch.models.lora import materialize_block_lora
+
+    return materialize_block_lora(bp, fcfg.lora_scale, fcfg.lora_dropout, lora_keep)
 
 
 def _encoder_block(x: torch.Tensor, bp: Params, fcfg: ForwardConfig, n_head: int,
                    time_keep: Optional[torch.Tensor] = None,
-                   feat_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   feat_keep: Optional[torch.Tensor] = None,
+                   lora_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``time_keep`` (T,) and ``feat_keep`` (d,) are this layer's deep
-    SpecAugment keep-vectors (batch-shared), None where it is off."""
+    SpecAugment keep-vectors (batch-shared), None where it is off;
+    ``lora_keep`` its LoRA dropout keep-vector, None without dropout."""
     dtype = fcfg.dtype
-    x_ln = layer_norm(x, bp["attn_ln"])
-    if time_keep is not None:
-        x_ln = x_ln * time_keep[None, :, None] * feat_keep[None, None, :]
+    bp = _with_lora(bp, fcfg, lora_keep)
+    if time_keep is None:
+        x_ln = layer_norm(x, bp["attn_ln"], name="enc_ln1")
+    else:
+        x_ln = layer_norm(x, bp["attn_ln"]) * time_keep[None, :, None]
+        x_ln = named("enc_ln1", torch.mul, x_ln, feat_keep[None, None, :])
     x = x + multi_head_attention(x_ln, x_ln, bp["attn"], n_head, dtype,
-                                 impl=fcfg.enc_attn)
-    return x + _mlp(layer_norm(x, bp["mlp_ln"]), bp["mlp"], dtype)
+                                 impl=fcfg.enc_attn, site="enc")
+    x_ln2 = layer_norm(x, bp["mlp_ln"], name="enc_ln2")
+    return x + _mlp(x_ln2, bp["mlp"], dtype, site="enc")
 
 
 def _decoder_block(x: torch.Tensor, bp: Params, xa: torch.Tensor,
-                   fcfg: ForwardConfig, n_head: int) -> torch.Tensor:
+                   fcfg: ForwardConfig, n_head: int,
+                   lora_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     dtype = fcfg.dtype
-    x_ln = layer_norm(x, bp["attn_ln"])
+    bp = _with_lora(bp, fcfg, lora_keep)
+    x_ln = layer_norm(x, bp["attn_ln"], name="dec_ln1")
     x = x + multi_head_attention(x_ln, x_ln, bp["attn"], n_head, dtype,
-                                 causal=True, impl=fcfg.dec_attn)
-    x_lnc = layer_norm(x, bp["cross_attn_ln"])
+                                 causal=True, impl=fcfg.dec_attn, site="dec")
+    x_lnc = layer_norm(x, bp["cross_attn_ln"], name="dec_ln_cross")
     x = x + multi_head_attention(x_lnc, xa, bp["cross_attn"], n_head, dtype,
-                                 impl=fcfg.cross_attn)
-    return x + _mlp(layer_norm(x, bp["mlp_ln"]), bp["mlp"], dtype)
+                                 impl=fcfg.cross_attn, probs_name="cross_attn_probs",
+                                 site="cross")
+    x_ln2 = layer_norm(x, bp["mlp_ln"], name="dec_ln2")
+    return x + _mlp(x_ln2, bp["mlp"], dtype, site="dec")
 
 
 def _layer_views(blocks: Params, n_layers: int, dtype: torch.dtype,
@@ -420,6 +489,13 @@ def _layer_views(blocks: Params, n_layers: int, dtype: torch.dtype,
     return layers
 
 
+def _precast(fcfg: ForwardConfig) -> bool:
+    """Whether the stacked matrices are cast once before the layer loop: not
+    in a LoRA forward, whose adapters fold into float32 kernels
+    (``_cast_blocks_once`` skips LoRA runs too)."""
+    return fcfg.precast_weights and not fcfg.lora_scale
+
+
 def _stochastic(block, keep_prob: float):
     """``block`` with stochastic depth's rescale for a kept layer:
     ``x + (block(x) - x) / keep_prob``. The divisor is a tensor in x's dtype,
@@ -434,12 +510,31 @@ def _stochastic(block, keep_prob: float):
     return kept
 
 
-def _run_block(fn, remat: bool, *args):
-    if remat and torch.is_grad_enabled():
-        # Every random value a block uses is drawn outside it and passed in,
-        # so no RNG state is stashed for the recompute.
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-    return fn(*args)
+def _remat(fcfg: ForwardConfig):
+    """``run(fn, remat, *args)``: ``fn(*args)``, checkpointed under the
+    config's ``remat_policy`` where ``remat`` and gradients are on."""
+    policy = parse_remat_policy(fcfg.remat_policy)
+    kwargs = {} if policy.is_full else {"context_fn": policy.contexts}
+
+    def run(fn, remat: bool, *args):
+        if remat and torch.is_grad_enabled():
+            # Every random value a block uses is drawn outside it and passed
+            # in, so no RNG state is stashed for the recompute.
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                              **kwargs)
+        return fn(*args)
+
+    return run
+
+
+def _lora_keep(fcfg: ForwardConfig, draws: Optional["ForwardDraws"], u_name: str,
+               device) -> Optional[torch.Tensor]:
+    """(L, width) {0, 1} LoRA dropout keep-rows from the draws, or None."""
+    u = getattr(draws, u_name) if draws is not None and fcfg.lora_draws else None
+    if u is None:
+        return None
+    keep = np.asarray(u, np.float32) < np.float32(1.0 - fcfg.lora_dropout)
+    return torch.from_numpy(keep.astype(np.float32)).to(device)
 
 
 def _kept(coins: Optional[np.ndarray], p: float, n_layers: int) -> List[bool]:
@@ -490,7 +585,9 @@ def _training_draws(fcfg: ForwardConfig, dims: ModelDimensions, train: bool,
                     ) -> Optional[ForwardDraws]:
     if not (train and fcfg.needs_draws):
         return None
-    return draws if draws is not None else draw_forward(generator, dims, device)[0]
+    if draws is not None:
+        return draws
+    return draw_forward(generator, dims, device, lora=fcfg.lora_draws)[0]
 
 
 def encoder_forward(params: Params, mel: torch.Tensor, dims: ModelDimensions,
@@ -515,17 +612,20 @@ def encoder_forward(params: Params, mel: torch.Tensor, dims: ModelDimensions,
             draws.dsa_time, x.shape[1], fcfg.dsa_time_mask_param)).to(x.device, dtype)
         feat_keep = torch.from_numpy(axis_keep_masks(
             draws.dsa_feat, x.shape[2], fcfg.dsa_freq_mask_param)).to(x.device, dtype)
+    lora_keep = _lora_keep(fcfg, draws, "enc_lora", x.device)
     block = _stochastic(_encoder_block, 1.0 - fcfg.sd_encoder if draws else 1.0)
+    run = _remat(fcfg)
 
     last_only = fcfg.remat_encoder_last_only and not fcfg.remat_encoder and L > 1
-    views = _layer_views(enc["blocks"], L, dtype, fcfg.precast_weights)
+    views = _layer_views(enc["blocks"], L, dtype, _precast(fcfg))
     for i, bp in enumerate(views):
         if not kept[i]:
             continue
         encoder_forward.blocks_run += 1
         masks = (time_keep[i], feat_keep[i]) if dsa_on[i] else (None, None)
         remat = fcfg.remat_encoder or (last_only and i == L - 1)
-        x = _run_block(block, remat, x, bp, fcfg, dims.n_audio_head, *masks)
+        x = run(block, remat, x, bp, fcfg, dims.n_audio_head, *masks,
+                None if lora_keep is None else lora_keep[i])
     return layer_norm(x, enc["ln_post"]).float()
 
 
@@ -541,12 +641,15 @@ def decoder_forward(params: Params, tokens: torch.Tensor, xa: torch.Tensor,
     xa = xa.to(dtype)
     draws = _training_draws(fcfg, dims, train, draws, generator, x.device)
     kept = _kept(draws.dec_coin if draws else None, fcfg.sd_decoder, L)
+    lora_keep = _lora_keep(fcfg, draws, "dec_lora", x.device)
     block = _stochastic(_decoder_block, 1.0 - fcfg.sd_decoder if draws else 1.0)
-    for i, bp in enumerate(_layer_views(dec["blocks"], L, dtype, fcfg.precast_weights)):
+    run = _remat(fcfg)
+    for i, bp in enumerate(_layer_views(dec["blocks"], L, dtype, _precast(fcfg))):
         if not kept[i]:
             continue
         decoder_forward.blocks_run += 1
-        x = _run_block(block, fcfg.remat_decoder, x, bp, xa, fcfg, dims.n_text_head)
+        x = run(block, fcfg.remat_decoder, x, bp, xa, fcfg, dims.n_text_head,
+                None if lora_keep is None else lora_keep[i])
     x = layer_norm(x, dec["ln"])
     # Tied output embedding: stored in the compute dtype, upcast for the loss.
     logits = torch.matmul(x.to(dtype), dec["tok_emb"].to(dtype).t())

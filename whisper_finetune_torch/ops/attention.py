@@ -72,6 +72,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from whisper_finetune_torch.ops.remat import named
+
 HEAD_DIM = 64  # the kernels' head width (every Whisper preset uses 64)
 
 
@@ -80,17 +82,22 @@ HEAD_DIM = 64  # the kernels' head width (every Whisper preset uses 64)
 # ---------------------------------------------------------------------------
 
 def xla_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool = False, sm_scale: float = 1.0) -> torch.Tensor:
+            causal: bool = False, sm_scale: float = 1.0,
+            probs_name: str = "attn_probs") -> torch.Tensor:
     """q (B, H, Tq, D), k/v (B, H, Tk, D) -> (B, H, Tq, D): scores in the
     compute dtype (float32 accumulation), softmax in float32, probabilities
-    cast back."""
+    cast back: the remat site ``probs_name`` (``attn_probs`` or
+    ``cross_attn_probs``, per call site)."""
     dtype = q.dtype
     Tq, Tk = q.shape[2], k.shape[2]
     scale = sm_scale ** 0.5
     qk = torch.matmul(q * scale, (k * scale).transpose(-1, -2)).float()
     if causal:
         qk = qk + torch.full((Tq, Tk), float("-inf"), device=q.device).triu(1)
-    w = torch.softmax(qk, dim=-1).to(dtype)
+    if dtype == torch.float32:
+        w = named(probs_name, torch.softmax, qk, -1)
+    else:
+        w = named(probs_name, torch.softmax(qk, dim=-1).to, dtype)
     return torch.matmul(w, v)
 
 
@@ -388,9 +395,11 @@ def resolve_auto_impls(device) -> dict:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False, sm_scale: float = 1.0,
-              impl: str = "xla") -> torch.Tensor:
+              impl: str = "xla", probs_name: str = "attn_probs") -> torch.Tensor:
+    """``probs_name``: the remat site of the plain path's probabilities (the
+    kernels never materialise them)."""
     if impl == "xla":
-        return xla_mha(q, k, v, causal=causal, sm_scale=sm_scale)
+        return xla_mha(q, k, v, causal=causal, sm_scale=sm_scale, probs_name=probs_name)
     if impl == "splash":
         return splash_mha(q, k, v, causal=causal, sm_scale=sm_scale)
     if impl == "flash":

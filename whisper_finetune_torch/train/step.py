@@ -13,9 +13,15 @@ Stochastic depth and deep SpecAugment draw all their random numbers for all
 microbatches of a step at once (``draw_forward``: one transfer to the host a
 step), before the first forward.
 
-This is the single-device, non-split path. Frozen partitions (LoRA, train_only_*), the split
-update, the manual backward, ZeRO-1, gradient histograms and data
-parallelism come later (ROADMAP queue 1, items 8, 12 and 13).
+Frozen parameters (LoRA's base weights, the other side of a
+``train_only_encoder`` / ``train_only_decoder`` run) have
+``requires_grad=False`` (:func:`mark_trainable`): the step differentiates,
+clips and updates only the trainable leaves, in the JAX flatten order, and
+the optimizer's state covers those alone.
+
+This is the single-device, non-split path. The split update, the manual
+backward, ZeRO-1, gradient histograms and data parallelism come later
+(ROADMAP queue 1, items 12 and 13).
 """
 
 from __future__ import annotations
@@ -29,8 +35,10 @@ from whisper_finetune_torch.models.dims import ModelDimensions
 from whisper_finetune_torch.models.whisper import (
     ForwardConfig,
     ForwardDraws,
+    Params,
     Whisper,
     draw_forward,
+    flatten,
     forward_impl,
 )
 
@@ -41,6 +49,46 @@ class TrainState(NamedTuple):
     model: Whisper  # the parameters, updated in place by the step
     opt_state: Any  # the optimizer's own state; ``.count`` updates applied
     step: int
+
+
+# ---------------------------------------------------------------------------
+# Frozen vs trainable parameters
+# ---------------------------------------------------------------------------
+
+def build_trainable_mask(params: Params, t_config: Dict, lora_mask: Optional[Params] = None
+                         ) -> Params:
+    """The trainable mask (a tree of bools like ``params``): LoRA's mask
+    (adapters only) or all True, then ``train_only_decoder`` freezes the
+    encoder and ``train_only_encoder`` the decoder."""
+
+    def fill(tree, value):
+        return {k: fill(v, value) if isinstance(v, dict) else value for k, v in tree.items()}
+
+    mask = lora_mask if lora_mask is not None else fill(params, True)
+    if t_config["train_only_decoder"]:
+        mask = {**mask, "encoder": fill(mask["encoder"], False)}
+    if t_config["train_only_encoder"]:
+        mask = {**mask, "decoder": fill(mask["decoder"], False)}
+    return mask
+
+
+def mark_trainable(params: Params, trainable_mask: Optional[Params]) -> None:
+    """Sets ``requires_grad`` of every leaf from ``trainable_mask`` (a tree
+    of bools like ``params``; None trains everything): the port's partition,
+    which :func:`trainable_leaves` reads."""
+    for path, leaf in flatten(params):
+        train = True
+        if trainable_mask is not None:
+            train = trainable_mask
+            for k in path:
+                train = train[k]
+        leaf.requires_grad_(bool(train))
+
+
+def trainable_leaves(model: Whisper):
+    """(path, leaf) of the trainable leaves in flatten order: what the
+    optimizer's ``init`` and ``get_optimizer`` take."""
+    return [(path, p) for path, p in model.leaves() if p.requires_grad]
 
 
 # ---------------------------------------------------------------------------
@@ -109,8 +157,8 @@ def make_train_step(
     device="cuda",
 ) -> Callable[..., tuple]:
     """Build ``step(state, batch, generator=None, draws=None) -> (state, loss)``.
-    ``tx`` is any optimizer with ``init`` / ``fused_apply`` over the leaves of
-    ``Whisper.leaves()`` (``optim.get_optimizer``).
+    ``tx`` is any optimizer with ``init`` / ``fused_apply`` over the
+    trainable leaves (:func:`trainable_leaves`; ``optim.get_optimizer``).
 
     Batch tensors are shaped ``(accum, B, ...)`` on ``device``: ``audio`` +
     ``crop_frames`` with ``feat_cfg`` (log-mel and SpecAugment run inside the
@@ -145,7 +193,7 @@ def make_train_step(
         (each microbatch's gradients are float32 before the cast)."""
         accum = batch[data_keys[0]].shape[0]
         if draws is None:
-            draws = (draw_forward(generator, dims, leaves[0].device, accum)
+            draws = (draw_forward(generator, dims, leaves[0].device, accum, lora=fcfg.lora_draws)
                      if fcfg.needs_draws else [None] * accum)
         elif len(draws) != accum:
             raise ValueError(f"{len(draws)} draws for {accum} microbatches")
@@ -184,7 +232,7 @@ def make_train_step(
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              draws: Optional[Sequence[ForwardDraws]] = None):
-        leaves = [p for _, p in state.model.leaves()]
+        leaves = [p for _, p in trainable_leaves(state.model)]
         grad_sum, accum, loss = accumulate(state.model.params(), leaves, batch, generator,
                                            draws)
         g_scale = reduce_sums(grad_sum, accum)
