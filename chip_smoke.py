@@ -77,6 +77,20 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    - ``surgery``: ``init_name: whisper-4832`` from a 3.1 GB large-v3 ``.pt``
      resized to 48 + 32 layers, the first slice's step: launches 160 / 80 / 43
      a step; the resized model saved and reloaded as fp16 (times of each).
+6. The training driver, ``whisper_finetune_torch.scripts.finetune.main``,
+   in this process on ``configs/DEBUG.yaml`` turned to ``init_name:
+   large-v3`` at full width (random weights), batch 8, accumulation 1, 8-bit
+   AdamW, over ``tools/make_debug_dataset.py``'s rows (64 train, 8 of the
+   validation rows): YAML -> validation -> tokenizer -> HF dataset -> sample
+   builder -> sampler -> loader threads -> pinned copies -> the train step,
+   8 optimizer steps, eval at step 0 and 8, ``metrics.jsonl``, ``.pt``
+   saves. Counters zeroed just before ``main`` and read just after: each
+   train step 128 / 64 / 43 launches as the first slice's, plus one forward
+   launch a site for each eval batch; the ``metrics.jsonl`` keys equal the
+   JAX driver's (``tests/driver_metrics_keys.json``); ``last_model.pt`` read
+   back equal to fp16 of the final parameters. Prints the median
+   ``perf/step_time_s`` and ``perf/host_batch_build_s`` beside the first
+   slice's step, the peak and the save times.
 
 ``--profile`` adds a ``torch.profiler`` window of two main-path steps: device
 time by kernel and group, and the device's busy share of the wall time.
@@ -1111,6 +1125,144 @@ def surgery_leg(batch) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the training driver end to end
+# ---------------------------------------------------------------------------
+
+DRIVER_CONFIG = ROOT / "configs" / "DEBUG.yaml"
+DRIVER_KEYS = ROOT / "tests" / "driver_metrics_keys.json"  # pinned from the JAX driver
+DRIVER_LOSS_TOL = 0.25  # first train loss against the step-0 validation NLL (0.018 on an H100: PERF.md)
+
+
+def driver_leg(first_slice_step_s: float) -> dict:
+    """``whisper_finetune_torch.scripts.finetune.main`` in this process on a
+    config derived from ``configs/DEBUG.yaml``: ``init_name: large-v3`` at
+    full width (32 + 32 layers, random weights), batch 8, accumulation 1,
+    8-bit AdamW, ``attn_impl: auto``, full remat, bf16; the dataset of
+    ``tools/make_debug_dataset.py --n 64`` (64 train / 16 validation rows)
+    written under ``build/chip_smoke/``, so 8 optimizer steps; eval at step
+    0 and step 8 on 8 validation rows (batches of 4). Asserted: the launch
+    counts (each train step 128 / 64 / 43 as the first slice's, each eval
+    batch one forward a site), finite losses with the first within 0.25 of
+    the step-0 validation NLL and within 1 of ln V, the ``metrics.jsonl``
+    keys equal to those the CPU test pins from the JAX driver, ``val/*`` at
+    step 0 and 8, and ``last_model.pt`` read back by ``load_model`` equal to
+    fp16 of the final parameters."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import yaml
+
+    from tools.make_debug_dataset import main as make_dataset  # ROOT is on sys.path (main)
+    from whisper_finetune_torch.models import load_model
+    from whisper_finetune_torch.optim.quantized import BLOCK, QMoment
+    from whisper_finetune_torch.scripts import finetune
+    from whisper_finetune_torch.tools import first_slice as fs
+
+    tmp = Path(tempfile.mkdtemp(prefix="driver_", dir=SCRATCH))
+    make_dataset(str(tmp / "ds"), n=64)
+    config = yaml.safe_load(DRIVER_CONFIG.read_text())
+    config["model"]["init_name"] = "large-v3"
+    config["dataset"].update(train_datasets=[str(tmp / "ds")], val_datasets=[str(tmp / "ds")],
+                             batch_size=8, batch_size_eval=4, select_n_per_v_ds=[8])
+    config["training"].update(accum_grad_steps=1, epochs=1, eval_steps=1.0)
+    config["optimizer"]["8bit"] = True
+    config["save_dir"] = str(tmp / "out")
+
+    saves = []
+    save_checkpoint = finetune.save_checkpoint
+
+    def timed_save(path, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, *args, **kwargs)
+        saves.append({"file": Path(path).name, "s": time.perf_counter() - t0,
+                      "gb": Path(path).stat().st_size / GB})
+
+    random_init = os.environ.get("WFT_ALLOW_RANDOM_INIT")
+    os.environ["WFT_ALLOW_RANDOM_INIT"] = "1"
+    finetune.save_checkpoint = timed_save
+    kernels = fs.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        state, run_dir = finetune.main(config, device="cuda")
+    finally:
+        finetune.save_checkpoint = save_checkpoint
+        if random_init is None:
+            del os.environ["WFT_ALLOW_RANDOM_INIT"]
+        else:
+            os.environ["WFT_ALLOW_RANDOM_INIT"] = random_init
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated()
+
+    model, dims = state.model, state.model.dims
+    records = [json.loads(line) for line in open(Path(run_dir) / "metrics.jsonl")]
+    train = [r for r in records if "Train loss" in r]
+    n_steps = len(train)
+    leaves = [p for _, p in model.leaves()]
+    fused = sum(isinstance(mu, QMoment) and p.numel() % BLOCK == 0
+                for p, mu in zip(leaves, state.opt_state.mu))
+    sites = dims.n_audio_layer + dims.n_text_layer  # encoder self + cross
+    eval_batches = 2 * 2  # evals at step 0 and 8, each 8 rows in batches of 4
+    expect = {"attn_fwd": 2 * sites * n_steps + sites * eval_batches,
+              "attn_bwd": sites * n_steps, "fused_adamw8_leaf": fused * n_steps}
+    if n_steps != 8 or fused != 43 or launches != expect:
+        raise AssertionError(f"[driver] {n_steps} steps, launches {launches} != {expect}")
+    losses = [r["Train loss"] for r in train]
+    (val0,) = [r["val/debug_loss"] for r in records if r["_step"] == 0 and "val/debug_loss" in r]
+    # At random init the debug texts' few, repeated targets sit ln V + 0.6
+    # (not the ln V +- 0.5 of uniform random targets): the first loss is held
+    # to the eval step's own mean target NLL on the validation rows before
+    # training (a separate path, no smoothing or SpecAugment), and to ln V
+    # within 1.
+    if (not all(math.isfinite(x) for x in losses) or abs(losses[0] - val0) > DRIVER_LOSS_TOL
+            or abs(losses[0] - math.log(dims.n_vocab)) > 1.0):
+        raise AssertionError(f"[driver] losses {losses}, step-0 validation NLL {val0}")
+    keys = sorted(set().union(*records))
+    want = json.loads(DRIVER_KEYS.read_text())
+    if keys != want:
+        raise AssertionError(f"[driver] metrics.jsonl keys differ from the JAX driver's: "
+                             f"extra {sorted(set(keys) - set(want))}, "
+                             f"missing {sorted(set(want) - set(keys))}")
+    val_steps = [r["_step"] for r in records if "val/macro_wer" in r]
+    if val_steps != [0, n_steps]:
+        raise AssertionError(f"[driver] val/* at steps {val_steps}")
+    t0 = time.perf_counter()
+    back, _ = load_model(str(Path(run_dir) / "last_model.pt"), device="cuda")
+    read_s = time.perf_counter() - t0
+    if not all(torch.equal(b, a.detach().half().float())
+               for (_, a), (_, b) in zip(model.leaves(), back.leaves())):
+        raise AssertionError("[driver] last_model.pt differs from fp16(final parameters)")
+
+    step_times = [r["perf/step_time_s"] for r in train if "perf/step_time_s" in r]
+    # the last step builds no next batch
+    builds = [r["perf/host_batch_build_s"] for r in train[1:-1]]
+    rec = {
+        "model": "large-v3", "batch": 8, "steps": n_steps, "losses": losses,
+        "step_s_all": step_times, "step_s_median": statistics.median(step_times),
+        "host_batch_build_s_all": builds,
+        "host_batch_build_s_median": statistics.median(builds),
+        "first_slice_step_s_median": first_slice_step_s, "peak_mem_bytes": peak,
+        "saves": saves, "last_model_read_s": read_s, "wall_s": wall_s,
+        "val_loss": [r["val/debug_loss"] for r in records if "val/debug_loss" in r],
+        "launches": launches,
+    }
+    log(f"  [driver] {n_steps} steps in {wall_s:.1f} s (eval, saves and set-up included); "
+        f"losses {losses[0]:.4f} .. {losses[-1]:.4f}; launches {launches}")
+    log(f"  [driver] median perf/step_time_s {rec['step_s_median'] * 1e3:.1f} ms, "
+        f"perf/host_batch_build_s {rec['host_batch_build_s_median'] * 1e3:.1f} ms; "
+        f"first slice {first_slice_step_s * 1e3:.1f} ms; peak {peak / 2**30:.2f} GiB; saves "
+        + ", ".join(f"{x['file']} {x['gb']:.2f} GB in {x['s']:.1f} s" for x in saves)
+        + f"; last_model.pt read in {read_s:.1f} s ({smi_line()})")
+    del state, model, back
+    shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def profile_steps(step, state, batch, gen, n_steps: int = 2) -> dict:
     """Device time by kernel over ``n_steps`` main-path steps
     (``torch.profiler``), grouped, with the device's busy share of the
@@ -1311,6 +1463,15 @@ def main() -> int:
     lora = lora_leg()
     log("layer surgery (init_name whisper-4832):")
     surgery = surgery_leg(batch)
+    del batch
+    torch.cuda.empty_cache()
+    log("training driver (scripts/finetune.py on large-v3):")
+    driver = driver_leg(main_rec["step_s_median"])
+    print(json.dumps({"leg": "driver", "step_ms_median": driver["step_s_median"] * 1e3,
+                      "host_batch_build_ms_median": driver["host_batch_build_s_median"] * 1e3,
+                      "first_slice_step_ms_median": driver["first_slice_step_s_median"] * 1e3,
+                      "peak_gib": driver["peak_mem_bytes"] / 2**30, "saves": driver["saves"],
+                      "launches": driver["launches"], "card": smi_line()}), flush=True)
     new_legs = {**{f"remat {k}": v for k, v in remat.items()}, "lora": lora, "surgery": surgery}
     for name, leg in new_legs.items():
         print(json.dumps({"leg": name, "step_ms_median": leg["step_s_median"] * 1e3,
@@ -1322,7 +1483,7 @@ def main() -> int:
 
     per_step = main_rec["launches_per_step"]
     by_leg = {"splash_adamw8": main_rec["launches"], **{k: v["launches"] for k, v in legs.items()},
-              **{k: v["launches"] for k, v in new_legs.items()}}
+              **{k: v["launches"] for k, v in new_legs.items()}, "driver": driver["launches"]}
     kernels = attention_entries(enc, cross, dec_self, attn_err, repeatable, fwd_res, by_leg,
                                 per_step)
     kernels.append({
@@ -1344,6 +1505,7 @@ def main() -> int:
                "decoder_self_routes": dec_route}, "adamw8_timing": adam_t,
               "adamw8_check": adam, "attn_bwd_repeatable": repeatable,
               "main_path": main_rec, "flagship_legs": legs, "model_layer_legs": new_legs,
+              "driver_leg": driver,
               "seconds": time.perf_counter() - T_START}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

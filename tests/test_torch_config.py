@@ -8,6 +8,7 @@ That JAX script imports ``whisper_finetune_tpu.data``, whose
 stands a stub in for it while the script is imported, and removes every
 module it caused to load afterwards."""
 
+import contextlib
 import dataclasses
 import sys
 import types
@@ -24,16 +25,16 @@ CONFIGS = sorted(p.name for p in (ROOT / "configs").glob("*.yaml"))
 SECTIONS = ("training", "augmentation", "optimizer", "lr_scheduler", "model")
 
 
-@pytest.fixture
-def jax_finetune():
+@contextlib.contextmanager
+def stubbed_inverse_mel():
+    """Imports of ``whisper_finetune_tpu.data`` succeed inside; every JAX
+    package module they loaded is dropped on the way out."""
     before = set(sys.modules)
     stub = types.ModuleType("whisper_finetune_tpu.data.inverse_mel")
     stub.inverse_mel_to_audio = lambda *a, **k: None
     sys.modules[stub.__name__] = stub
     try:
-        from whisper_finetune_tpu.scripts import finetune
-
-        yield finetune
+        yield
     finally:
         for name in set(sys.modules) - before:
             if name.startswith("whisper_finetune_tpu"):
@@ -43,6 +44,24 @@ def jax_finetune():
         for attr in ("data", "scripts"):
             if f"whisper_finetune_tpu.{attr}" not in sys.modules:
                 whisper_finetune_tpu.__dict__.pop(attr, None)
+
+
+@pytest.fixture
+def jax_finetune():
+    with stubbed_inverse_mel():
+        from whisper_finetune_tpu.scripts import finetune
+
+        yield finetune
+
+
+@pytest.fixture(scope="module")
+def jax_data():
+    """The JAX package's ``data`` package, for a whole test module."""
+    with stubbed_inverse_mel():
+        import whisper_finetune_tpu.data as data
+        import whisper_finetune_tpu.data.augment  # noqa: F401
+
+        yield data
 
 
 def _raw(name):

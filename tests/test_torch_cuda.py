@@ -197,3 +197,41 @@ def test_remat_policies_on_card(card, policy):
         assert (a.float() - b.float()).abs().max().item() <= 1e-2 * a.abs().max().item() + 1e-6
     staged = 2 * 150 * 4 * 128 * 2 * 2 + 2 * 2 * 150 * 128 * 2 * 2  # fc1 per enc layer; k, v per dec layer
     assert offload_to_host.bytes == (staged if policy.startswith("offload") else 0)
+
+
+def test_driver_on_card(card, tmp_path, monkeypatch):
+    """``scripts/finetune.py``'s ``main`` on the tiny preset (4 + 4 layers,
+    random weights) over the debug dataset: 2 optimizer steps of 4
+    microbatches of 2, eval at step 0 and 2 on 4 rows in batches of 2. Each
+    microbatch launches the forward twice a site (forward and remat
+    recompute) and the backward once; each eval batch the forward once a
+    site. The ``metrics.jsonl`` keys are the JAX driver's."""
+    import json
+    from pathlib import Path
+
+    import yaml
+
+    from tools.make_debug_dataset import main as make_dataset
+    from whisper_finetune_torch.scripts import finetune
+    from whisper_finetune_torch.tools.first_slice import reset_counts
+
+    root = Path(__file__).resolve().parent.parent
+    monkeypatch.setenv("WFT_ALLOW_RANDOM_INIT", "1")
+    make_dataset(str(tmp_path / "ds"), n=16)
+    config = yaml.safe_load((root / "configs" / "DEBUG.yaml").read_text())
+    config["dataset"].update(train_datasets=[str(tmp_path / "ds")],
+                             val_datasets=[str(tmp_path / "ds")], select_n_per_v_ds=[4],
+                             batch_size=2, batch_size_eval=2)
+    config["training"].update(epochs=1, eval_steps=1.0, accum_grad_steps=4)
+    config["save_dir"] = str(tmp_path / "out")
+    kernels = reset_counts()
+    state, run_dir = finetune.main(config, device="cuda")
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    sites = state.model.dims.n_audio_layer + state.model.dims.n_text_layer
+    micro, eval_batches = 2 * 4, 2 * 2
+    assert launches == {"attn_fwd": 2 * sites * micro + sites * eval_batches,
+                        "attn_bwd": sites * micro, "fused_adamw8_leaf": 0}
+    records = [json.loads(line) for line in open(Path(run_dir) / "metrics.jsonl")]
+    keys = sorted(set().union(*records))
+    assert keys == json.loads((root / "tests" / "driver_metrics_keys.json").read_text())
+    assert (Path(run_dir) / "last_model.pt").exists()

@@ -1,0 +1,261 @@
+"""The port's training driver (``whisper_finetune_torch/scripts/finetune.py``)
+and what it stands on against the JAX package's: ``validate_config`` on
+every shipped YAML, the refusals of the training keys the port cannot honour
+yet, the step math and seeding, the runtime facade, the LR telemetry, and a
+``main()`` run of a trimmed ``configs/DEBUG.yaml`` on the CPU beside the JAX
+driver's run on the same data and ``.pt``: the same ``metrics.jsonl`` keys
+(pinned in ``tests/driver_metrics_keys.json``, which ``chip_smoke.py`` holds
+the card's run to), the same checkpoint layout, and the step-0 ``val/loss``
+within 1e-2 relative.
+
+The JAX driver runs in this process on the test session's 8 CPU devices, so
+its host batch and local accumulation differ from the port's one card: the
+two runs are compared by keys and layout, not step for step (its step math
+gives the same 2 steps here). Its data package needs the ``inverse_mel``
+stub (``test_torch_config.stubbed_inverse_mel``)."""
+
+import json
+import os
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from test_torch_config import stubbed_inverse_mel
+from whisper_finetune_tpu import utils as ju
+from whisper_finetune_tpu.config import validate_config as j_validate_config
+from whisper_finetune_torch import config as tc
+from whisper_finetune_torch import runtime as rt
+from whisper_finetune_torch import utils as tu
+
+ROOT = Path(__file__).resolve().parent.parent
+CONFIGS = sorted(p.name for p in (ROOT / "configs").glob("*.yaml"))
+KEYS = json.loads((ROOT / "tests" / "driver_metrics_keys.json").read_text())
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_validate_config_matches_jax(name):
+    raw = yaml.safe_load((ROOT / "configs" / name).read_text())
+    assert tc.validate_config(raw) == j_validate_config(raw)
+
+
+@pytest.mark.parametrize("raw", [
+    {"model": {}}, {"model": {"init_name": "tiny"}, "dataset": {"prompt_use_rate": 1.5}},
+    {"model": {"init_name": "tiny"}, "dataset": {"batch_size": 0}},
+    {"model": {"init_name": "tiny"}, "training": {"split_optimizer_step": "yes"}},
+    {"model": {"init_name": "tiny"}, "training": {"compiler_options": [1]}},
+    {"model": {"init_name": "tiny"}, "augmentation": {"bpe_dropout": 1.0}},
+])
+def test_validate_config_rejects_as_jax(raw):
+    with pytest.raises(ValueError) as want:
+        j_validate_config(raw)
+    with pytest.raises(ValueError) as got:
+        tc.validate_config(raw)
+    assert str(got.value) == str(want.value)
+
+
+def test_validate_config_warns_on_unknown_keys():
+    with pytest.warns(UserWarning, match="sections ignored"):
+        tc.validate_config({"model": {"init_name": "tiny"}, "trainig": {}})
+    with pytest.warns(UserWarning, match="model config keys"):
+        tc.validate_config({"model": {"init_name": "tiny", "lorra": 1}})
+
+
+@pytest.mark.parametrize("key,value,item", [
+    ("split_optimizer_step", True, 13), ("manual_backward", True, 13),
+    ("manual_precast_weights", True, 13), ("manual_precast_weights", "auto", 13),
+    ("zero_shard_optimizer", True, 12), ("ddp_find_unused_parameters", True, 12),
+    ("resume_from", "output/run/train_state", 15), ("save_train_state", True, 15),
+])
+def test_unported_training_keys_raise_naming_their_item(key, value, item):
+    cfg = tc.validate_config({"model": {"init_name": "tiny"}, "training": {key: value}})
+    with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
+        tc.check_training_keys(cfg)
+    from whisper_finetune_torch.scripts import finetune
+
+    with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
+        finetune.main({"model": {"init_name": "tiny"}, "training": {key: value}}, device="cpu")
+
+
+def test_served_training_keys_and_shipped_refusals():
+    base = {"model": {"init_name": "tiny"}}
+    assert tc.check_training_keys(tc.validate_config(base)) == []
+    muon = tc.validate_config({**base, "optimizer": {"muon": True},
+                               "training": {"manual_backward": "auto", "compiler_options": {
+                                   "xla_tpu_scoped_vmem_limit_kib": 32768}}})
+    notes = tc.check_training_keys(muon)
+    assert "fused single-program step" in notes[0] and "ignored" in notes[1]
+    for name, item in (("config_large_v3_best_muon_1chip.yaml", 13),
+                       ("config_large_v3_best_muon_v5e8_zero.yaml", 12)):
+        with pytest.raises(ValueError, match=f"item {item}"):
+            tc.check_training_keys(tc.load_config(ROOT / "configs" / name))
+
+
+def test_step_math_and_seeding_match_jax():
+    for n, bs, epochs, accum, world, drop in ((100, 4, 1, 2, 1, True), (101, 3, 2.5, 4, 1, False),
+                                              (7, 8, 1, 1, 1, True), (64, 8, 1, 8, 4, True)):
+        cfg = {"training": {"epochs": epochs, "accum_grad_steps": accum},
+               "dataset": {"batch_size": bs}}
+        assert tu.calculate_training_steps(cfg, n, world, drop) == ju.calculate_training_steps(
+            cfg, n, world, drop)
+        cfg["training"].update(train_steps=n, eval_steps=0.3)
+        assert tu.calculate_val_steps(cfg) == ju.calculate_val_steps(cfg)
+    assert tu.resolve_local_accum_grad_steps(8, 4) == ju.resolve_local_accum_grad_steps(8, 4)
+    for bad in ((6, 4), (0, 1)):
+        with pytest.raises(ValueError):
+            tu.resolve_local_accum_grad_steps(*bad)
+    g = torch.Generator()
+    a, b = tu.set_seed(5, g), ju.set_seed(5)
+    assert a.random() == b.random()
+    assert torch.equal(torch.rand(4, generator=g),
+                       torch.rand(4, generator=torch.Generator().manual_seed(5)))
+
+
+def test_runtime_facade(tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="item 12"):
+        rt.setup_distributed()
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    rt.setup_distributed()
+    assert (rt.RANK, rt.WORLD_SIZE, rt.IS_MAIN) == (0, 1, True)
+    rt.barrier()
+    rt.print_once("hello")
+    assert "hello" in capsys.readouterr().out
+    rt.setup_wandb(config={"save_dir": str(tmp_path)}, mode="disabled")
+    hist = {"_type": "histogram", "counts": [1, 2], "edges": [0.0, 0.5, 1.0]}
+    try:
+        rt.log({"Train loss": 1.5, "h": hist, "t": torch.tensor(2.0)}, step=3)
+    finally:
+        rt.finish_wandb()
+    rec = json.loads((tmp_path / "metrics.jsonl").read_text())
+    assert rec["_step"] == 3 and rec["Train loss"] == 1.5 and rec["h"] == hist
+    assert rec["t"] == 2.0
+
+
+def test_lr_log_dict_matches_jax():
+    from whisper_finetune_torch.scripts.finetune import _build_lr_log_dict
+
+    with stubbed_inverse_mel():
+        from whisper_finetune_tpu.scripts.finetune import _build_lr_log_dict as j_build
+
+        for meta in ([{"lr_log_label": "adamw", "base_lr": 1e-3, "base_lr_unscaled": 1e-3}],
+                     [{"lr_log_label": "muon", "base_lr": 0.064, "base_lr_unscaled": 0.02},
+                      {"lr_log_label": "muon", "base_lr": 0.144, "base_lr_unscaled": 0.02},
+                      {"lr_log_label": "aux_adamw", "base_lr": 3e-4, "base_lr_unscaled": 3e-4}]):
+            assert _build_lr_log_dict(meta, 0.5, 1.5) == j_build(meta, 0.5, 1.5)
+
+
+def test_driver_defaults_to_the_card(monkeypatch):
+    from whisper_finetune_torch.scripts import finetune
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        finetune.main({"model": {"init_name": "tiny"}})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        finetune.cli(["--config", str(ROOT / "configs" / "DEBUG.yaml")])
+
+
+# ---------------------------------------------------------------------------
+# main() on the CPU beside the JAX driver
+# ---------------------------------------------------------------------------
+
+def _config(ds, ckpt, save_dir):
+    config = yaml.safe_load((ROOT / "configs" / "DEBUG.yaml").read_text())
+    config["model"]["init_name"] = ckpt
+    config["dataset"].update(train_datasets=[ds], val_datasets=[ds], batch_size=1,
+                             batch_size_eval=2, select_n_per_v_ds=[4], train_num_workers=0)
+    # accum_grad_steps 8 is the global window: 16 samples make 2 optimizer
+    # steps on one card and on the JAX session's 8 CPU devices alike.
+    config["training"].update(epochs=1, eval_steps=1.0, gradient_checkpointing_encoder=False,
+                              gradient_checkpointing_decoder=False)
+    config["save_dir"] = save_dir
+    return config
+
+
+def _records(run_dir):
+    return [json.loads(line) for line in open(Path(run_dir) / "metrics.jsonl")]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    import jax
+
+    from tools.make_debug_dataset import main as make_dataset
+    from whisper_finetune_tpu.models import ModelDimensions, init_params, save_checkpoint
+    from whisper_finetune_torch.scripts import finetune
+
+    tmp = tmp_path_factory.mktemp("driver")
+    ds = str(tmp / "ds")
+    make_dataset(ds, n=16)
+    dims = ModelDimensions(n_mels=80, n_audio_ctx=1500, n_audio_state=32, n_audio_head=2,
+                           n_audio_layer=1, n_vocab=51865, n_text_ctx=448, n_text_head=2,
+                           n_text_state=32, n_text_layer=1)
+    ckpt = str(tmp / "mini.pt")
+    save_checkpoint(ckpt, init_params(jax.random.PRNGKey(0), dims), dims)
+
+    state, run_dir = finetune.main(_config(ds, ckpt, str(tmp / "torch")), device="cpu")
+    with stubbed_inverse_mel():
+        from whisper_finetune_tpu.scripts.finetune import main as j_main
+
+        j_main(_config(ds, ckpt, str(tmp / "jax")))
+    (j_run,) = [tmp / "jax" / d for d in os.listdir(tmp / "jax")]
+    return {"torch": Path(run_dir), "jax": j_run, "state": state, "ckpt": ckpt, "ds": ds,
+            "tmp": tmp}
+
+
+def test_driver_metrics_keys_match_jax(runs):
+    got, want = _records(runs["torch"]), _records(runs["jax"])
+    assert sorted(set().union(*got)) == sorted(set().union(*want)) == KEYS
+    assert [r["_step"] for r in got] == [r["_step"] for r in want] == [0, 1, 2, 2]
+    train = [r for r in got if "Train loss" in r]
+    assert len(train) == 2 and all(np.isfinite(r["Train loss"]) for r in train)
+    hist = train[-1]["grads_hist/decoder.tok_emb"]
+    assert hist["_type"] == "histogram" and len(hist["counts"]) == 64
+    assert len(hist["edges"]) == 65 and sum(hist["counts"]) == 51865 * 32
+    assert train[-1]["perf/samples_per_sec"] == pytest.approx(
+        8 / train[-1]["perf/step_time_s"])
+
+
+def test_driver_checkpoint_layout_matches_jax(runs):
+    files = {side: sorted(os.listdir(runs[side])) for side in ("torch", "jax")}
+    assert files["torch"] == files["jax"]
+    for name in files["torch"]:
+        if not name.endswith(".pt"):
+            continue
+        got = torch.load(runs["torch"] / name, weights_only=True)
+        want = torch.load(runs["jax"] / name, weights_only=True)
+        assert got["dims"] == want["dims"]
+        assert list(got["model_state_dict"]) == list(want["model_state_dict"])
+        for k, v in got["model_state_dict"].items():
+            w = want["model_state_dict"][k]
+            assert (v.shape, v.dtype) == (w.shape, w.dtype), k
+    # last_model.pt is the fp16 cast of the final parameters
+    from whisper_finetune_torch.models import load_model
+
+    back, _ = load_model(str(runs["torch"] / "last_model.pt"), device="cpu")
+    assert all(torch.equal(b, a.detach().half().float())
+               for (_, a), (_, b) in zip(runs["state"].model.leaves(), back.leaves()))
+
+
+def test_driver_step0_val_loss_matches_jax(runs):
+    (got,) = [r["val/debug_loss"] for r in _records(runs["torch"]) if r["_step"] == 0]
+    (want,) = [r["val/debug_loss"] for r in _records(runs["jax"]) if r["_step"] == 0]
+    assert abs(got - want) <= 1e-2 * abs(want)
+
+
+def test_driver_profile_trace(runs, monkeypatch):
+    """``WFT_PROFILE_DIR``: a torch.profiler Chrome trace of steps 3-8, cut at
+    the last step of a shorter run (3 here)."""
+    from whisper_finetune_torch.scripts import finetune
+
+    config = _config(runs["ds"], runs["ckpt"], str(runs["tmp"] / "profiled"))
+    config["dataset"]["train_datasets"] = [runs["ds"]] * 2  # 32 samples: 4 steps
+    config["training"]["epochs"] = 0.75  # 3 steps
+    monkeypatch.setenv("WFT_PROFILE_DIR", str(runs["tmp"] / "trace"))
+    state, _ = finetune.main(config, device="cpu")
+    assert state.step == 3
+    trace = json.loads((runs["tmp"] / "trace" / "trace.json").read_text())
+    assert any("attn" in e.get("name", "") or "aten::" in e.get("name", "")
+               for e in trace["traceEvents"])

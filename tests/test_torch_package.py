@@ -43,7 +43,13 @@ def test_port_imports_no_jax():
         "whisper_finetune_torch.optim.schedulers, whisper_finetune_torch.optim.state_bridge, "
         "whisper_finetune_torch.models.lora, whisper_finetune_torch.models.surgery, "
         "whisper_finetune_torch.ops.remat, whisper_finetune_torch.scripts.merge_lora_weights, "
-        "whisper_finetune_torch.tools.first_slice, whisper_finetune_torch.tools.remat_policies\n"
+        "whisper_finetune_torch.tools.first_slice, whisper_finetune_torch.tools.remat_policies, "
+        "whisper_finetune_torch.utils, whisper_finetune_torch.runtime, "
+        "whisper_finetune_torch.tokenizer, whisper_finetune_torch.tokenizer.bpe, "
+        "whisper_finetune_torch.native, whisper_finetune_torch.data, "
+        "whisper_finetune_torch.data.augment, whisper_finetune_torch.data.inverse_mel, "
+        "whisper_finetune_torch.data.hf_utils, whisper_finetune_torch.eval, "
+        "whisper_finetune_torch.eval.evaluator, whisper_finetune_torch.scripts.finetune\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'whisper_finetune_tpu')]\n"
         "print(bad)\n"

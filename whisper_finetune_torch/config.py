@@ -5,16 +5,20 @@ The schema is the JAX package's (``whisper_finetune_tpu/config.py``; configs
 written for it run unmodified): :func:`with_defaults` fills the sections the
 functions and the optimizer factory read (``training``, ``augmentation``,
 ``optimizer``, ``lr_scheduler``, ``model``) and checks their values;
+:func:`validate_config` is the training script's whole normalisation (the
+dataset section too, unknown keys warned about), and
+:func:`check_training_keys` refuses the training keys this port cannot
+honour yet, naming the ROADMAP item that brings them.
 :func:`build_forward_config` and :func:`build_featurize_config` are the
 ones of ``scripts/finetune.py``, and :func:`build_model` is that script's
-model section (base checkpoint, layer surgery, LoRA, frozen leaves). The
-dataset section and the training script itself are not ported yet.
+model section (base checkpoint, layer surgery, LoRA, frozen leaves).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, Optional
+import warnings
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -177,6 +181,135 @@ def with_defaults(config: Dict[str, Any]) -> Dict[str, Any]:
         if not 0.0 <= p <= 1.0:
             raise ValueError(f"augmentation.{section_name}.p must be in [0, 1], got {p}")
     return out
+
+
+_KNOWN_SECTIONS = {
+    "model", "dataset", "lr_scheduler", "optimizer", "training", "augmentation", "wandb",
+    "seed", "save_dir", "path_to_config",
+    "ddp",  # documentation-only block in reference configs; accepted, unused
+}
+
+_MODEL_KEYS = {
+    "init_name", "bfloat16", "lora", "lora_config", "base_init_name", "encoder_layers",
+    "encoder_layer", "decoder_layers", "decoder_layer",
+    "deocer_layer",  # typo accepted by the reference
+    "checkpoint_path",
+}
+
+_DATASET_DEFAULTS: Dict[str, Any] = {
+    "train_datasets": [],
+    "select_n_per_t_ds": [],
+    "groupby_col": [],
+    "select_language_tag": None,
+    "warmup_dataset_idx": None,
+    "val_datasets": [],
+    "val_dataset_names": None,
+    "select_n_per_v_ds": [],
+    "train_split_name": "train",
+    "valid_split_name": "validation",
+    "no_timestamp_training": False,
+    "max_prompt_length": 223,
+    "prompt_use_rate": 0.5,
+    "no_timestamp_rate": 0.5,
+    "batch_size": 1,
+    "batch_size_eval": 1,
+    "train_num_workers": None,
+    "eval_num_workers": 0,
+    "drop_last": True,
+    # Pad decoder tokens to the smallest of these bucket lengths instead of
+    # the fixed 448 context. None = fixed 448.
+    "decoder_pad_buckets": None,
+}
+
+
+def validate_config(config: Dict[str, Any]) -> Dict[str, Any]:
+    """The training script's normalisation of a raw YAML dict, the JAX
+    package's ``validate_config``: :func:`with_defaults`, the dataset
+    section's defaults and checks, the training keys' value checks, warnings
+    for unknown sections and model keys, and ``wandb`` / ``seed`` /
+    ``save_dir``. Returns a new dict; the input is not mutated."""
+    if not isinstance(config, dict):
+        raise TypeError(f"Config must be a mapping, got {type(config).__name__}")
+    unknown = set(config) - _KNOWN_SECTIONS
+    if unknown:
+        warnings.warn(f"Unknown top-level config sections ignored: {sorted(unknown)}")
+    model = config.get("model") or {}
+    if "init_name" not in model:
+        raise ValueError("config.model.init_name is required")
+    unknown_model = set(model) - _MODEL_KEYS
+    if unknown_model:
+        warnings.warn(f"Unknown model config keys ignored: {sorted(unknown_model)}")
+
+    normalized = with_defaults(config)
+    out: Dict[str, Any] = {"model": normalized["model"],
+                           "dataset": _merge_defaults(config.get("dataset"), _DATASET_DEFAULTS)}
+    for section in ("training", "augmentation", "optimizer", "lr_scheduler"):
+        out[section] = normalized[section]
+
+    ds = out["dataset"]
+    for rate_key in ("prompt_use_rate", "no_timestamp_rate"):
+        rate = float(ds[rate_key])
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError(f"dataset.{rate_key} must be in [0, 1], got {rate}")
+    if int(ds["batch_size"]) < 1 or int(ds["batch_size_eval"]) < 1:
+        raise ValueError("dataset.batch_size/batch_size_eval must be >= 1")
+
+    tr = out["training"]
+    for key in ("split_optimizer_step", "manual_backward"):
+        if tr[key] not in ("auto", True, False):
+            raise ValueError(f"training.{key} must be 'auto', true, or false, got {tr[key]!r}")
+    if tr["compiler_options"] is not None and not isinstance(tr["compiler_options"], dict):
+        raise ValueError(
+            "training.compiler_options must be a mapping of XLA option "
+            f"name -> value, got {type(tr['compiler_options']).__name__}"
+        )
+    if not 0.0 <= float(out["augmentation"]["bpe_dropout"]) < 1.0:
+        raise ValueError("augmentation.bpe_dropout must be in [0, 1)")
+
+    out["wandb"] = dict(config.get("wandb") or {})
+    out["seed"] = int(config.get("seed", 0))
+    out["save_dir"] = config.get("save_dir", "output")
+    if "path_to_config" in config:
+        out["path_to_config"] = config["path_to_config"]
+    return out
+
+
+# Training keys the port does not honour yet when set (truthy), with the
+# ROADMAP item that brings them; ``auto`` is served for two of them.
+_AUTO_SERVED = ("split_optimizer_step", "manual_backward")
+_UNPORTED_KEYS = (
+    ("split_optimizer_step", 13),
+    ("manual_backward", 13),
+    ("manual_precast_weights", 13),
+    ("zero_shard_optimizer", 12),
+    ("ddp_find_unused_parameters", 12),
+    ("resume_from", 15),
+    ("save_train_state", 15),
+)
+
+
+def check_training_keys(config: Dict[str, Any]) -> List[str]:
+    """Raise ``ValueError`` naming its ROADMAP item for a training key set to
+    a value the port cannot honour yet (a split optimizer program, the
+    manual backward, ZeRO-1, DDP, resume and train-state saves). Returns the
+    notes to log once for the keys it serves differently: ``auto`` split and
+    manual backward run the one fused step (the same update), and XLA's
+    ``compiler_options`` mean nothing here."""
+    tr = config["training"]
+    for key, item in _UNPORTED_KEYS:
+        if tr[key] and not (key in _AUTO_SERVED and tr[key] == "auto"):
+            raise ValueError(
+                f"training.{key}={tr[key]!r} is not supported by the PyTorch port yet "
+                f"(ROADMAP item {item}); the port runs the fused single-card step")
+    notes = []
+    if tr["split_optimizer_step"] == "auto" and config["optimizer"].get("muon"):
+        notes.append("split_optimizer_step: auto runs the fused single-program step on the "
+                     "card (the same update; the split program is JAX's memory tactic for "
+                     "16 GB chips, ROADMAP item 13)")
+    if tr["compiler_options"]:
+        notes.append(f"WARNING: training.compiler_options {sorted(tr['compiler_options'])} "
+                     "are XLA compile options; ignored by the PyTorch port")
+    return notes
 
 
 def load_config(path) -> Dict[str, Any]:

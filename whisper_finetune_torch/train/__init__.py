@@ -2,6 +2,7 @@ from whisper_finetune_torch.train.step import (
     TrainState,
     build_trainable_mask,
     cross_entropy_loss,
+    grad_histograms,
     make_train_step,
     mark_trainable,
     trainable_leaves,
@@ -11,6 +12,7 @@ __all__ = [
     "TrainState",
     "build_trainable_mask",
     "cross_entropy_loss",
+    "grad_histograms",
     "make_train_step",
     "mark_trainable",
     "trainable_leaves",

@@ -19,9 +19,13 @@ Frozen parameters (LoRA's base weights, the other side of a
 clips and updates only the trainable leaves, in the JAX flatten order, and
 the optimizer's state covers those alone.
 
+With ``grad_hist_every`` the step also returns per-module histograms of
+the step's gradients (:func:`grad_histograms`, the ``wandb.watch(log="all")``
+telemetry) on every ``grad_hist_every``-th optimizer step, zeros otherwise.
+
 This is the single-device, non-split path. The split update, the manual
-backward, ZeRO-1, gradient histograms and data parallelism come later
-(ROADMAP queue 1, items 12 and 13).
+backward, ZeRO-1 and data parallelism come later (ROADMAP queue 1, items 12
+and 13).
 """
 
 from __future__ import annotations
@@ -143,6 +147,54 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Gradient histograms (the wandb.watch(log="all") telemetry)
+# ---------------------------------------------------------------------------
+
+_HIST_CHUNK = 1 << 24  # elements binned at a time: bounds the float32 and index temporaries
+
+
+def _hist_groups(named_leaves) -> Dict[str, list]:
+    """Leaves grouped by their top-two path keys ('encoder.blocks',
+    'decoder.tok_emb', ...), in flatten order."""
+    groups: Dict[str, list] = {}
+    for path, leaf in named_leaves:
+        groups.setdefault(".".join(path[:2]), []).append(leaf)
+    return groups
+
+
+def _leaf_histogram(leaf: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                    bins: int) -> torch.Tensor:
+    """Counts of ``leaf`` in ``bins`` equal bins over [lo, hi], in float32
+    with JAX's index rule (``int32((x - lo) / span * bins)``, clipped)."""
+    span = torch.clamp(hi - lo, min=1e-12)
+    counts = torch.zeros((bins,), dtype=torch.int64, device=leaf.device)
+    for chunk in leaf.detach().reshape(-1).split(_HIST_CHUNK):
+        idx = ((chunk.float() - lo) / span * bins).to(torch.int32).clamp_(0, bins - 1)
+        counts += torch.bincount(idx, minlength=bins)
+    return counts
+
+
+def grad_histograms(named_leaves, bins: int) -> Dict[str, tuple]:
+    """Per-module-group ``{name: (counts, lo, hi)}`` histograms of
+    ``(path, tensor)`` pairs (gradients or parameters), computed on their
+    device: one range per group (the min and max of its leaves, float32),
+    counts summed over the group's leaves."""
+    out = {}
+    for name, leaves in _hist_groups(named_leaves).items():
+        lo = torch.stack([leaf.detach().min().float() for leaf in leaves]).min()
+        hi = torch.stack([leaf.detach().max().float() for leaf in leaves]).max()
+        counts = sum(_leaf_histogram(leaf, lo, hi, bins) for leaf in leaves)
+        out[name] = (counts, lo, hi)
+    return out
+
+
+def _zeros_histograms(named_leaves, bins: int, device) -> Dict[str, tuple]:
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {name: (torch.zeros((bins,), dtype=torch.int64, device=device), zero, zero)
+            for name in _hist_groups(named_leaves)}
+
+
+# ---------------------------------------------------------------------------
 # Train step factory
 # ---------------------------------------------------------------------------
 
@@ -154,9 +206,16 @@ def make_train_step(
     feat_cfg=None,
     max_grad_norm: Optional[float] = None,
     accum_dtype: Optional[str] = None,
+    grad_hist_every: Optional[int] = None,
+    grad_hist_bins: int = 64,
     device="cuda",
 ) -> Callable[..., tuple]:
-    """Build ``step(state, batch, generator=None, draws=None) -> (state, loss)``.
+    """Build ``step(state, batch, generator=None, draws=None) -> (state, loss)``,
+    or ``(state, loss, hists)`` with ``grad_hist_every``: :func:`grad_histograms`
+    of the mean gradients on steps where ``(state.step + 1) %
+    grad_hist_every == 0`` (computed on the gradient sums, whose counts are
+    the same, with the ranges scaled by 1 / accum), zero counts and ranges
+    otherwise.
     ``tx`` is any optimizer with ``init`` / ``fused_apply`` over the
     trainable leaves (:func:`trainable_leaves`; ``optim.get_optimizer``).
 
@@ -232,11 +291,24 @@ def make_train_step(
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              draws: Optional[Sequence[ForwardDraws]] = None):
-        leaves = [p for _, p in trainable_leaves(state.model)]
+        named = trainable_leaves(state.model)
+        leaves = [p for _, p in named]
         grad_sum, accum, loss = accumulate(state.model.params(), leaves, batch, generator,
                                            draws)
         g_scale = reduce_sums(grad_sum, accum)
+        hists = None
+        if grad_hist_every:
+            named_grads = [(path, g) for (path, _), g in zip(named, grad_sum)]
+            if (state.step + 1) % grad_hist_every == 0:
+                scale = 1.0 / accum  # as JAX: float32 ranges times float32(1 / accum)
+                hists = {name: (c, lo * scale, hi * scale) for name, (c, lo, hi)
+                         in grad_histograms(named_grads, grad_hist_bins).items()}
+            else:
+                hists = _zeros_histograms(named_grads, grad_hist_bins, leaves[0].device)
         opt_state = tx.fused_apply(grad_sum, state.opt_state, leaves, g_scale=g_scale)
-        return TrainState(state.model, opt_state, state.step + 1), loss
+        new_state = TrainState(state.model, opt_state, state.step + 1)
+        if grad_hist_every:
+            return new_state, loss, hists
+        return new_state, loss
 
     return step
