@@ -92,6 +92,27 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``perf/step_time_s`` and ``perf/host_batch_build_s`` beside the first
    slice's step, the peak and the save times.
 
+7. Data parallelism (``ddp``): ``finetune.main`` with ZeRO-1
+   (``zero_shard_optimizer``) in two ranks on the one card, subprocesses of
+   this script (``--ddp-rank``) over gloo, since NCCL refuses two ranks of a
+   communicator on one GPU; the driver leg's configuration at batch 8 a
+   rank, global accumulation 2 (local 1), 1 warm-up and 2 timed steps, no
+   SpecAugment, prompts or warm-up, eval at step 0 and 3, the train state
+   saved at step 3. Before it, in this process, the same global batch
+   through one rank with accumulation 2 at world size 1 over NCCL (the
+   default backend, a group of one) as the reference, and that run's first
+   step once more for the card's run-to-run spread. Counters zeroed just
+   before each ``main`` and read just after. Asserted: the ranks'
+   parameters bit-equal after every step; the first loss within 1e-3 of the
+   reference's; after step 1, on sampled elements and 8-bit blocks, the
+   parameters within 3 lr and at most 1% of them beyond 15% of lr or of the
+   codes more than a level apart; launches a rank 640 / 192 / 129 (the
+   reference 1024 / 384 / 129); each rank's peak within 0.3 GB of the
+   driver leg's peak less the 8-bit state it no longer holds; the train
+   state read back into a fresh two-rank state bit-equal. Prints the
+   backend, per-rank step ms, peaks, collective calls and bytes a step, and
+   the save and read seconds.
+
 ``--profile`` adds a ``torch.profiler`` window of two main-path steps: device
 time by kernel and group, and the device's busy share of the wall time.
 ``--kernels-only`` stops after phase 2 (build, checks and kernel times): the
@@ -1130,6 +1151,7 @@ def surgery_leg(batch) -> dict:
 # ---------------------------------------------------------------------------
 
 DRIVER_CONFIG = ROOT / "configs" / "DEBUG.yaml"
+DEBUG_DS = SCRATCH / "debug_ds"  # make_debug_dataset.py --n 64: the driver and ddp legs
 DRIVER_KEYS = ROOT / "tests" / "driver_metrics_keys.json"  # pinned from the JAX driver
 DRIVER_LOSS_TOL = 0.25  # first train loss against the step-0 validation NLL (0.018 on an H100: PERF.md)
 
@@ -1162,10 +1184,10 @@ def driver_leg(first_slice_step_s: float) -> dict:
     from whisper_finetune_torch.tools import first_slice as fs
 
     tmp = Path(tempfile.mkdtemp(prefix="driver_", dir=SCRATCH))
-    make_dataset(str(tmp / "ds"), n=64)
+    make_dataset(str(DEBUG_DS), n=64)  # kept for the ddp leg, which removes it
     config = yaml.safe_load(DRIVER_CONFIG.read_text())
     config["model"]["init_name"] = "large-v3"
-    config["dataset"].update(train_datasets=[str(tmp / "ds")], val_datasets=[str(tmp / "ds")],
+    config["dataset"].update(train_datasets=[str(DEBUG_DS)], val_datasets=[str(DEBUG_DS)],
                              batch_size=8, batch_size_eval=4, select_n_per_v_ds=[8])
     config["training"].update(accum_grad_steps=1, epochs=1, eval_steps=1.0)
     config["optimizer"]["8bit"] = True
@@ -1260,6 +1282,492 @@ def driver_leg(first_slice_step_s: float) -> dict:
     del state, model, back
     shutil.rmtree(tmp)
     torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: data parallelism: ZeRO-1 across two ranks on the one card
+# ---------------------------------------------------------------------------
+
+DDP_WORLD = 2
+DDP_LR = 1e-4  # configs/DEBUG.yaml's AdamW lr; the schedule's factor is 1 at the first update
+DDP_SAMPLE = 65536  # parameter elements compared a leaf (all of a smaller leaf)
+DDP_SAMPLE_BLOCKS = 256  # 8-bit blocks compared a moment
+# Parameters after one step against the one-rank reference: the first 8-bit
+# AdamW update is about lr·sign(g) an element, so where the two runs'
+# gradients differ in sign (near-zero gradients; dQ's summation order makes
+# the backward non-deterministic) an element moves by up to 2 lr: the remat
+# leg's bound, REMAT_PARAM_TOL's 3 lr, holds here too.
+DDP_PARAM_TOL = 3 * DDP_LR
+DDP_PEAK_TOL = 0.3e9  # each rank's peak against the reckoning (PERF.md §6, PR 7)
+DDP_NU_FLOOR = 1 + 4 * 254 // 6  # the log code of 1% of a block's max second moment
+# After step 1, against the reference: the share of sampled parameters
+# beyond 15% of lr and of codes more than 1 level apart (PERF.md §6, PR 7:
+# about 0.1% and 0.06% measured on the card).
+DDP_OFF_SHARE = 0.01
+
+
+def ddp_config(accum: int, zero: bool, save_dir: str) -> dict:
+    """``configs/DEBUG.yaml`` as the driver leg turns it (large-v3 at full
+    width, batch 8 a rank, 8-bit AdamW, ``attn_impl: auto``, full remat,
+    bf16, the 64 debug rows, eval on 8 validation rows in batches of 4),
+    trimmed to 3 optimizer steps of 16 samples (epochs 0.75) with global
+    ``accum_grad_steps`` ``accum``. No per-rank random draw enters (no
+    SpecAugment, no prompts, no timestamp coin: a sample's coins are seeded
+    by its position in its rank's stream), and no warm-up, so the first
+    update moves the parameters."""
+    import yaml
+
+    config = yaml.safe_load(DRIVER_CONFIG.read_text())
+    config["model"]["init_name"] = "large-v3"
+    config["dataset"].update(train_datasets=[str(DEBUG_DS)], val_datasets=[str(DEBUG_DS)],
+                             batch_size=8, batch_size_eval=4, select_n_per_v_ds=[8],
+                             prompt_use_rate=0.0, no_timestamp_training=True)
+    config["training"].update(accum_grad_steps=accum, epochs=0.75, eval_steps=1.0,
+                              zero_shard_optimizer=zero, save_train_state=zero)
+    config["augmentation"]["spec_augment"]["apply"] = False
+    config["lr_scheduler"]["warmup_steps"] = 0
+    config["optimizer"]["8bit"] = True
+    config["save_dir"] = save_dir
+    return config
+
+
+def _sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _bit_checksums(model) -> list:
+    """Two integer sums a leaf over its float32 bits (plain, and weighted by
+    position): equal on two ranks where the leaves are bit-equal."""
+    import torch
+
+    out = []
+    for _, p in model.leaves():
+        bits = p.detach().reshape(-1).view(torch.int32)
+        s1 = s2 = 0
+        for i, chunk in enumerate(bits.split(1 << 24)):
+            c = chunk.long()
+            w = torch.arange(c.numel(), device=c.device).remainder_(65521).add_(1 + i)
+            s1 += int(c.sum())
+            s2 += int((c * w).sum())
+        out.append((s1, s2))
+    return out
+
+
+def _samples(model, tx, opt_state, flags) -> dict:
+    """The parameters at fixed sampled positions of every leaf, and the
+    8-bit codes of fixed sampled blocks of every quantized moment that this
+    rank holds (its ZeRO rows of blocks where ``flags`` says, else all)."""
+    import torch
+
+    from whisper_finetune_torch import parallel
+    from whisper_finetune_torch.optim.quantized import QMoment
+    from whisper_finetune_torch.train.step import trainable_leaves
+    from whisper_finetune_torch.train.zero import owned_moments
+
+    leaves = [p for _, p in trainable_leaves(model)]
+    n, r = parallel.world(), parallel.rank()
+    params, codes = [], []
+    for i, p in enumerate(leaves):
+        pos = torch.randint(p.numel(), (min(p.numel(), DDP_SAMPLE),),
+                            generator=torch.Generator().manual_seed(i))
+        params.append(p.detach().reshape(-1)[pos.to(p.device)].cpu())
+    for i, moments in enumerate(owned_moments(tx, opt_state, len(leaves))):
+        for j, m in enumerate(moments):
+            if not isinstance(m, QMoment):
+                continue
+            nb, first = m.codes.shape[0], 0
+            if flags[i]:
+                nb, first = nb * n, r * nb
+            blocks = torch.randint(nb, (DDP_SAMPLE_BLOCKS,),
+                                   generator=torch.Generator().manual_seed(1000 + i)).unique()
+            mine = blocks[(blocks >= first) & (blocks < first + m.codes.shape[0])]
+            codes.append({"leaf": i, "moment": j, "blocks": mine,
+                          "codes": m.codes[(mine - first).to(m.codes.device)].cpu()})
+    return {"params": params, "codes": codes}
+
+
+def ddp_run(config: dict, device: str, backend: str) -> dict:
+    """``finetune.main(config, device, backend)`` in this process, recording
+    each step (entry time, collective calls and bytes, bit checksums of the
+    parameters) and the sampled parameters and codes after step 1; kernel
+    counters zeroed just before ``main`` and read just after; the save of
+    the train state timed. Returns the record and the final state."""
+    import torch
+
+    from whisper_finetune_torch import parallel
+    from whisper_finetune_torch.optim.quantized import BLOCK, QMoment
+    from whisper_finetune_torch.scripts import finetune
+    from whisper_finetune_torch.tools import first_slice as fs
+    from whisper_finetune_torch.train.step import trainable_leaves
+    from whisper_finetune_torch.train.zero import owned_moments, zero_opt_partition
+
+    steps, saves, ctx = [], [], {}
+    make_train_step, get_optimizer = finetune.make_train_step, finetune.get_optimizer
+    save_train_state = finetune.save_train_state
+
+    def recording_optimizer(*args, **kwargs):
+        ctx["tx"], meta = get_optimizer(*args, **kwargs)
+        return ctx["tx"], meta
+
+    def recording_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+        zero = kwargs.get("zero_shard", False)
+
+        def run(state, batch, generator=None):
+            parallel.reset_counts()
+            t0 = time.perf_counter()
+            out = step(state, batch, generator)
+            new = out[0]
+            _sync()
+            rec = {"t0": t0, "s": time.perf_counter() - t0, "comm": parallel.counts(),
+                   "checksums": _bit_checksums(new.model)}
+            if not steps:
+                leaves = [p for _, p in trainable_leaves(new.model)]
+                flags = (zero_opt_partition(ctx["tx"], new.opt_state, leaves, parallel.world())
+                         if zero and parallel.world() > 1 else [False] * len(leaves))
+                rec["samples"] = _samples(new.model, ctx["tx"], new.opt_state, flags)
+            steps.append(rec)
+            return out
+
+        return run
+
+    def timed_save(path, state, tx, zero_shard=False):
+        _sync()
+        t0 = time.perf_counter()
+        save_train_state(path, state, tx, zero_shard)
+        saves.append({"path": str(path), "s": time.perf_counter() - t0})
+
+    finetune.make_train_step, finetune.get_optimizer = recording_step, recording_optimizer
+    finetune.save_train_state = timed_save
+    kernels = fs.reset_counts()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        state, run_dir = finetune.main(config, device=device, backend=backend)
+    finally:
+        finetune.make_train_step, finetune.get_optimizer = make_train_step, get_optimizer
+        finetune.save_train_state = save_train_state
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    leaves = [p for _, p in trainable_leaves(state.model)]
+    flags = (zero_opt_partition(ctx["tx"], state.opt_state, leaves, parallel.world())
+             if config["training"]["zero_shard_optimizer"] and parallel.world() > 1
+             else [False] * len(leaves))
+    moments = owned_moments(ctx["tx"], state.opt_state, len(leaves))
+    fused = sum(isinstance(ms[0], QMoment) and (p.numel() // (parallel.world() if f else 1))
+                % BLOCK == 0 for p, ms, f in zip(leaves, moments, flags))
+    state_bytes = sum(x.numel() * x.element_size() for ms in moments for m in ms
+                      for x in (m if isinstance(m, QMoment) else (m,)))
+    records = ([json.loads(line) for line in open(Path(run_dir) / "metrics.jsonl")]
+               if (Path(run_dir) / "metrics.jsonl").exists() else [])
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+    return {"steps": steps, "saves": saves, "launches": launches, "fused_per_step": fused,
+            "peak_mem_bytes": peak, "state_bytes": state_bytes,
+            "n_sharded": sum(flags), "records": records, "run_dir": run_dir,
+            "rank": parallel.rank(), "world": parallel.world()}, state, ctx["tx"]
+
+
+def ddp_rank(spec_path: str) -> int:
+    """One rank of the two-rank run (``chip_smoke.py --ddp-rank spec.json``,
+    started by :func:`ddp_leg` with torchrun's environment): the run, then
+    the train state rank 0 wrote read back into a fresh state (timed) and
+    held bit-equal to this rank's final state."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    spec = json.loads(Path(spec_path).read_text())
+    import whisper_finetune_torch.runtime as rt
+    from whisper_finetune_torch.models import init_params
+    from whisper_finetune_torch.optim import get_optimizer
+    from whisper_finetune_torch.optim.quantized import QMoment
+    from whisper_finetune_torch.train.state_io import load_train_state
+    from whisper_finetune_torch.train.step import TrainState
+    from whisper_finetune_torch.train.zero import owned_moments, zero_shard_state
+
+    rec, state, tx = ddp_run(spec["config"], spec["device"], spec["backend"])
+    rt.barrier()
+    (path,) = {x["path"] for x in rec["saves"]}
+    leaves = [p for _, p in state.model.leaves()]
+    fresh = init_params(state.model.dims, device=spec["device"], seed=1)
+    fresh_tx, _ = get_optimizer(fresh.leaves(), spec["config"]["optimizer"])
+    fresh_leaves = [p for _, p in fresh.leaves()]
+    template = TrainState(fresh, zero_shard_state(fresh_tx, fresh_tx.init(fresh_leaves),
+                                                  fresh_leaves), 0)
+    _sync()
+    t0 = time.perf_counter()
+    back = load_train_state(path, template, fresh_tx, zero_shard=True)
+    _sync()
+    rec["read_s"] = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(leaves, fresh_leaves))
+    for ma, mb in zip(owned_moments(tx, state.opt_state, len(leaves)),
+                      owned_moments(fresh_tx, back.opt_state, len(leaves))):
+        for a, b in zip(ma, mb):
+            pairs = zip(a, b) if isinstance(a, QMoment) else [(a, b)]
+            same = same and all(torch.equal(x, y) for x, y in pairs)
+    rec["read_back_equal"] = same and back.step == state.step \
+        and back.opt_state.count == state.opt_state.count
+    rec["file_gb"] = Path(path).stat().st_size / GB
+    rt.barrier()
+    rt.cleanup()
+    torch.save(rec, spec["out"])
+    return 0
+
+
+class _TwoRankOrder:
+    """The one-rank reference's sampler: each optimizer step's two
+    microbatches are the two ranks' batches of that step, in rank order."""
+
+    def __init__(self, sampler_cls, batch: int):
+        self.cls, self.batch = sampler_cls, batch
+
+    def __call__(self, num_samples, rank=0, world_size=1, **kw):
+        ranks = [self.cls(num_samples, rank=r, world_size=DDP_WORLD, **kw)
+                 for r in range(DDP_WORLD)]
+        batch = self.batch
+
+        class Interleaved:
+            def set_epoch(self, epoch):
+                for s in ranks:
+                    s.set_epoch(epoch)
+
+            def __iter__(self):
+                orders = [list(s) for s in ranks]
+                return iter(i for k in range(0, len(orders[0]), batch)
+                            for o in orders for i in o[k:k + batch])
+
+            def __len__(self):
+                return sum(len(s) for s in ranks)
+
+        return Interleaved()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ddp_runs(device: str = "cuda:0", reference_backend: str = "nccl"):
+    """The reference in this process (and its first step once more), then
+    the two ranks; returns (the reference's record, the repeat's, the ranks'
+    records, the reference's backend, the ranks' wall seconds)."""
+    import os
+
+    import torch
+
+    import whisper_finetune_torch.runtime as rt
+    from whisper_finetune_torch.scripts import finetune
+
+    out = SCRATCH / "ddp"
+    out.mkdir(parents=True, exist_ok=True)
+    env_keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                "WFT_ALLOW_RANDOM_INIT")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(_free_port()), WFT_ALLOW_RANDOM_INIT="1")
+    sampler = finetune.ShardedSampler
+    finetune.ShardedSampler = _TwoRankOrder(sampler, 8)
+    t0 = time.perf_counter()
+    try:
+        ref, state, _ = ddp_run(ddp_config(2, False, str(out / "reference")), device,
+                                reference_backend)
+        ref["wall_s"] = time.perf_counter() - t0
+        del state
+        # the reference's first step again: the card's run-to-run spread
+        config = ddp_config(2, False, str(out / "again"))
+        config["training"]["epochs"] = 0.25
+        config["dataset"]["val_datasets"] = []
+        again, state, _ = ddp_run(config, device, reference_backend)
+        backend = torch.distributed.get_backend()
+    finally:
+        finetune.ShardedSampler = sampler
+        rt.cleanup()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del state
+    torch.cuda.empty_cache()
+
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(DDP_WORLD):
+            spec = {"config": ddp_config(2, True, str(out / "ranks")), "device": device,
+                    "backend": "gloo", "out": str(out / f"rank{r}.pt")}
+            (out / f"rank{r}.json").write_text(json.dumps(spec))
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DDP_WORLD), LOCAL_RANK="0",
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       WFT_ALLOW_RANDOM_INIT="1")
+            log_file = open(out / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--ddp-rank",
+                 str(out / f"rank{r}.json")], env=env, stdout=log_file,
+                stderr=subprocess.STDOUT), log_file))
+        for p, _ in procs:
+            p.wait(timeout=600)
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    wall_s = time.perf_counter() - t0
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            tail = (out / f"rank{r}.log").read_text()[-3000:]
+            raise AssertionError(f"[ddp] rank {r} exited {p.returncode}:\n{tail}")
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(DDP_WORLD)]
+    return ref, again, ranks, backend, wall_s
+
+
+def _compare_after_step1(runs: list, ref: dict) -> dict:
+    """Sampled parameters and 8-bit codes after step 1 of each of ``runs``
+    against ``ref``'s: the largest parameter difference, and the share of
+    parameters beyond 15% of lr and of codes more than 1 level apart. Codes:
+    the first moment (int8, linear in the block's absmax) and the second
+    (uint8, log-scale over six decades of the block max) where the
+    reference's value is at least 1% of its block max (code >=
+    DDP_NU_FLOOR). On the CPU data-parallel runs are bit-equal to one
+    process (tests/test_torch_parallel.py); on the card no two runs are,
+    ZeRO or not: attn_bwd adds dQ in a varying order and the bf16 backward
+    carries those last bits into every earlier layer's gradient, so the
+    leg holds shares, not maxima, and measures the same shares between two
+    runs of the reference (PERF.md §6, PR 7)."""
+    worst, beyond, n = 0.0, 0, 0
+    codes = {"mu": [0, 0, 0], "nu": [0, 0, 0]}  # compared, beyond 1 level, largest
+    ref_codes = {(c["leaf"], c["moment"]): c for c in ref["codes"]}
+    for run in runs:
+        for a, b in zip(run["params"], ref["params"]):
+            d = (a - b).abs()
+            worst = max(worst, d.max().item())
+            beyond, n = beyond + int((d > 0.15 * DDP_LR).sum()), n + d.numel()
+        for c in run["codes"]:
+            want = ref_codes[(c["leaf"], c["moment"])]
+            index = {int(b): i for i, b in enumerate(want["blocks"])}
+            rows = want["codes"][[index[int(b)] for b in c["blocks"]]]
+            d = (c["codes"].int() - rows.int()).abs()
+            if c["moment"] == 1:
+                d = d[rows.int() >= DDP_NU_FLOOR]
+            if d.numel():
+                st = codes["mu" if c["moment"] == 0 else "nu"]
+                st[0], st[1] = st[0] + d.numel(), st[1] + int((d > 1).sum())
+                st[2] = max(st[2], int(d.max()))
+    share = {"params": beyond / max(n, 1), **{k: v[1] / max(v[0], 1) for k, v in codes.items()}}
+    return {"param_max": worst, "params_compared": n, "codes": codes, "share": share}
+
+
+def ddp_leg(driver: dict) -> dict:
+    """``finetune.main`` with ZeRO-1 in two ranks on the one card over gloo
+    (NCCL refuses two ranks of one communicator on one GPU), each passed
+    ``device="cuda:0"``: large-v3, batch 8 a rank, global accum 2 (local 1),
+    8-bit AdamW, 1 warm-up and 2 timed steps, the train state saved at the
+    last. Before it, the reference in this process: one rank at world size
+    1 over NCCL (the default backend's path, a group of one) with accum 2
+    over the same global batch. Asserted: the ranks' parameters bit-equal
+    after every step; the first loss within 1e-3 relative of the
+    reference's; after step 1, on sampled elements and blocks, the
+    parameters within DDP_PARAM_TOL of the reference's and at most
+    DDP_OFF_SHARE of them beyond 15% of lr or of the 8-bit codes more than
+    1 level apart (the reference's first step run again gives the card's own
+    spread, printed beside); exact launches; each rank's peak within DDP_PEAK_TOL of the
+    driver leg's peak less the state it no longer holds; the train state
+    read back bit-equal into a fresh two-rank state."""
+    import shutil
+
+    ref, again, ranks, backend, wall_s = ddp_runs()
+    out = SCRATCH / "ddp"
+
+    # the ranks hold the same parameters after every step
+    for k, steps in enumerate(zip(*(rk["steps"] for rk in ranks))):
+        if len({repr(s["checksums"]) for s in steps}) != 1:
+            raise AssertionError(f"[ddp] the ranks' parameters differ after step {k + 1}")
+    # against the one-rank reference
+    losses = [[x["Train loss"] for x in rec["records"] if "Train loss" in x]
+              for rec in (ranks[0], ref)]
+    if len(losses[0]) != 3 or abs(losses[0][0] - losses[1][0]) > 1e-3 * abs(losses[1][0]):
+        raise AssertionError(f"[ddp] losses {losses[0]} against the reference's {losses[1]}")
+    cmp = _compare_after_step1([rk["steps"][0]["samples"] for rk in ranks],
+                               ref["steps"][0]["samples"])
+    spread = _compare_after_step1([again["steps"][0]["samples"]], ref["steps"][0]["samples"])
+    if (cmp["param_max"] > DDP_PARAM_TOL or max(cmp["share"].values()) > DDP_OFF_SHARE
+            or min(v[0] for v in cmp["codes"].values()) == 0):
+        raise AssertionError(f"[ddp] after step 1 against the reference: {cmp} (the "
+                             f"reference against itself: {spread})")
+    # launches: a step 128 / 64 as the first slice's, 43 fused updates of the
+    # rank's quantized shards and whole leaves; an eval batch (2 of 4 rows a
+    # rank) one forward a site; the reference runs two microbatches a step
+    sites = 64
+    for name, rec, micro, steps, evals in [(f"rank {r}", rk, 1, 3, 4)
+                                           for r, rk in enumerate(ranks)] + \
+            [("reference", ref, 2, 3, 4), ("reference again", again, 2, 1, 0)]:
+        expect = {"attn_fwd": steps * micro * 2 * sites + evals * sites,
+                  "attn_bwd": steps * micro * sites, "fused_adamw8_leaf": steps * 43}
+        if rec["fused_per_step"] != 43 or rec["launches"] != expect:
+            raise AssertionError(f"[ddp] {name}: launches {rec['launches']} != {expect} "
+                                 f"({rec['fused_per_step']} fused updates a step)")
+    # memory: the driver leg's peak (the same run at world 1) less the 8-bit
+    # state the rank no longer holds
+    whole_state = ref["state_bytes"]
+    for r, rk in enumerate(ranks):
+        want = driver["peak_mem_bytes"] - (whole_state - rk["state_bytes"])
+        rk["peak_reckoned_bytes"] = want
+        if abs(rk["peak_mem_bytes"] - want) > DDP_PEAK_TOL:
+            raise AssertionError(f"[ddp] rank {r} peak {rk['peak_mem_bytes'] / GB:.3f} GB, "
+                                 f"reckoned {want / GB:.3f} GB")
+    if not all(rk["read_back_equal"] for rk in ranks):
+        raise AssertionError("[ddp] the train state read back differs from the final state")
+
+    step_ms = [[s["s"] * 1e3 for s in rk["steps"]] for rk in ranks]
+    timed_ms = [[(b["t0"] - a["t0"]) * 1e3 for a, b in zip(rk["steps"][1:], rk["steps"][2:])]
+                + [rk["steps"][-1]["s"] * 1e3] for rk in ranks]
+    comm = ranks[0]["steps"][1]["comm"]
+    rec = {
+        "backend": "gloo", "reference_backend": backend, "world": DDP_WORLD,
+        "losses": losses[0], "reference_losses": losses[1],
+        "step_ms": step_ms, "timed_step_ms": timed_ms, "reference_step_ms":
+        [s["s"] * 1e3 for s in ref["steps"]],
+        "comm_per_step": comm, "reference_comm_per_step": ref["steps"][1]["comm"],
+        "peak_bytes": [rk["peak_mem_bytes"] for rk in ranks],
+        "peak_reckoned_bytes": [rk["peak_reckoned_bytes"] for rk in ranks],
+        "reference_peak_bytes": ref["peak_mem_bytes"],
+        "state_bytes": [rk["state_bytes"] for rk in ranks], "whole_state_bytes": whole_state,
+        "n_sharded_leaves": ranks[0]["n_sharded"],
+        "after_step1": cmp, "reference_against_itself": spread,
+        "save_s": ranks[0]["saves"][0]["s"], "read_s": [rk["read_s"] for rk in ranks],
+        "file_gb": ranks[0]["file_gb"], "wall_s": wall_s, "reference_wall_s": ref["wall_s"],
+        "launches": {f"ddp rank{r}": rk["launches"] for r, rk in enumerate(ranks)}
+        | {"ddp reference": ref["launches"], "ddp reference again": again["launches"]},
+    }
+    log(f"  [ddp] backend gloo, world {DDP_WORLD} on one card; reference: world 1 over "
+        f"{backend}, accum 2")
+    log(f"  [ddp] losses {[round(x, 4) for x in losses[0]]}, reference "
+        f"{[round(x, 4) for x in losses[1]]}")
+    for name, c in (("two ranks", cmp), ("the reference once more", spread)):
+        shares = {k: round(v, 6) for k, v in c["share"].items()}
+        log(f"  [ddp] after step 1, {name} against the reference: parameters within "
+            f"{c['param_max']:.3e}; shares beyond 15% of lr / codes beyond 1 level {shares}; "
+            f"codes (compared, beyond 1 level, largest) {c['codes']}")
+    for r, rk in enumerate(ranks):
+        log(f"  [ddp] rank {r}: step ms {[round(x, 1) for x in step_ms[r]]}, peak "
+            f"{rk['peak_mem_bytes'] / GB:.3f} GB (reckoned {rk['peak_reckoned_bytes'] / GB:.3f}), "
+            f"8-bit state {rk['state_bytes'] / GB:.3f} GB of {whole_state / GB:.3f}, launches "
+            f"{rk['launches']}")
+    log(f"  [ddp] collectives a step (rank 0): {comm}; reference over {backend}: "
+        f"{ref['steps'][1]['comm']}")
+    log(f"  [ddp] train state {rec['file_gb']:.2f} GB saved in {rec['save_s']:.1f} s, read "
+        f"back bit-equal in {max(rec['read_s']):.1f} s; reference peak "
+        f"{ref['peak_mem_bytes'] / GB:.3f} GB; two ranks {wall_s:.1f} s, reference "
+        f"{ref['wall_s']:.1f} s ({smi_line()})")
+    shutil.rmtree(out)
+    shutil.rmtree(DEBUG_DS, ignore_errors=True)
     return rec
 
 
@@ -1361,6 +1869,8 @@ T_START = time.perf_counter()
 
 
 def main() -> int:
+    if "--ddp-rank" in sys.argv[1:]:
+        return ddp_rank(sys.argv[sys.argv.index("--ddp-rank") + 1])
     try:
         import torch
     except ImportError:
@@ -1472,6 +1982,16 @@ def main() -> int:
                       "first_slice_step_ms_median": driver["first_slice_step_s_median"] * 1e3,
                       "peak_gib": driver["peak_mem_bytes"] / 2**30, "saves": driver["saves"],
                       "launches": driver["launches"], "card": smi_line()}), flush=True)
+    log("data parallelism (ZeRO-1, two ranks on the card; reference one rank over NCCL):")
+    ddp = ddp_leg(driver)
+    print(json.dumps({"leg": "ddp", "backend": ddp["backend"], "world": ddp["world"],
+                      "reference_backend": ddp["reference_backend"],
+                      "step_ms": ddp["step_ms"], "peak_gb": [b / GB for b in ddp["peak_bytes"]],
+                      "peak_reckoned_gb": [b / GB for b in ddp["peak_reckoned_bytes"]],
+                      "collectives_per_step": ddp["comm_per_step"],
+                      "save_s": ddp["save_s"], "read_s": ddp["read_s"],
+                      "train_state_gb": ddp["file_gb"], "launches": ddp["launches"],
+                      "card": smi_line()}), flush=True)
     new_legs = {**{f"remat {k}": v for k, v in remat.items()}, "lora": lora, "surgery": surgery}
     for name, leg in new_legs.items():
         print(json.dumps({"leg": name, "step_ms_median": leg["step_s_median"] * 1e3,
@@ -1483,7 +2003,8 @@ def main() -> int:
 
     per_step = main_rec["launches_per_step"]
     by_leg = {"splash_adamw8": main_rec["launches"], **{k: v["launches"] for k, v in legs.items()},
-              **{k: v["launches"] for k, v in new_legs.items()}, "driver": driver["launches"]}
+              **{k: v["launches"] for k, v in new_legs.items()}, "driver": driver["launches"],
+              **ddp["launches"]}
     kernels = attention_entries(enc, cross, dec_self, attn_err, repeatable, fwd_res, by_leg,
                                 per_step)
     kernels.append({
@@ -1505,7 +2026,7 @@ def main() -> int:
                "decoder_self_routes": dec_route}, "adamw8_timing": adam_t,
               "adamw8_check": adam, "attn_bwd_repeatable": repeatable,
               "main_path": main_rec, "flagship_legs": legs, "model_layer_legs": new_legs,
-              "driver_leg": driver,
+              "driver_leg": driver, "ddp_leg": ddp,
               "seconds": time.perf_counter() - T_START}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

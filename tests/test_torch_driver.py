@@ -66,8 +66,6 @@ def test_validate_config_warns_on_unknown_keys():
 @pytest.mark.parametrize("key,value,item", [
     ("split_optimizer_step", True, 13), ("manual_backward", True, 13),
     ("manual_precast_weights", True, 13), ("manual_precast_weights", "auto", 13),
-    ("zero_shard_optimizer", True, 12), ("ddp_find_unused_parameters", True, 12),
-    ("resume_from", "output/run/train_state", 15), ("save_train_state", True, 15),
 ])
 def test_unported_training_keys_raise_naming_their_item(key, value, item):
     cfg = tc.validate_config({"model": {"init_name": "tiny"}, "training": {key: value}})
@@ -80,6 +78,9 @@ def test_unported_training_keys_raise_naming_their_item(key, value, item):
 
 
 def test_served_training_keys_and_shipped_refusals():
+    """The shipped multi-card configs pass (ZeRO-1 and the DDP key are
+    served since data parallelism was ported); the one-chip flagship's
+    split program and manual backward are still item 13."""
     base = {"model": {"init_name": "tiny"}}
     assert tc.check_training_keys(tc.validate_config(base)) == []
     muon = tc.validate_config({**base, "optimizer": {"muon": True},
@@ -87,10 +88,14 @@ def test_served_training_keys_and_shipped_refusals():
                                    "xla_tpu_scoped_vmem_limit_kib": 32768}}})
     notes = tc.check_training_keys(muon)
     assert "fused single-program step" in notes[0] and "ignored" in notes[1]
-    for name, item in (("config_large_v3_best_muon_1chip.yaml", 13),
-                       ("config_large_v3_best_muon_v5e8_zero.yaml", 12)):
-        with pytest.raises(ValueError, match=f"item {item}"):
-            tc.check_training_keys(tc.load_config(ROOT / "configs" / name))
+    for name in ("config_large_v3_best_muon_v5e8_zero.yaml", "config_large_v3_best_muon_ddp4.yaml",
+                 "DEBUG_DDP.yaml"):
+        tc.check_training_keys(tc.load_config(ROOT / "configs" / name))
+    assert tc.load_config(ROOT / "configs" / "config_large_v3_best_muon_v5e8_zero.yaml"
+                          )["training"]["zero_shard_optimizer"]
+    with pytest.raises(ValueError, match="item 13"):
+        tc.check_training_keys(tc.load_config(ROOT / "configs" /
+                                              "config_large_v3_best_muon_1chip.yaml"))
 
 
 def test_step_math_and_seeding_match_jax():
@@ -114,12 +119,20 @@ def test_step_math_and_seeding_match_jax():
 
 
 def test_runtime_facade(tmp_path, monkeypatch, capsys):
+    """At ``WORLD_SIZE=2`` the process group must start: with no second rank
+    it times out and raises (never carries on alone); at 1 there is none.
+    Two ranks that do start it: tests/test_torch_parallel*.py."""
+    from torch_dist_worker import _free_port
+
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(RuntimeError, match="item 12"):
-        rt.setup_distributed()
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    with pytest.raises(RuntimeError, match="could not start the gloo process group"):
+        rt.setup_distributed("cpu", timeout_s=1)
     monkeypatch.setenv("WORLD_SIZE", "1")
-    rt.setup_distributed()
+    assert rt.setup_distributed("cpu") == torch.device("cpu")
     assert (rt.RANK, rt.WORLD_SIZE, rt.IS_MAIN) == (0, 1, True)
+    assert not torch.distributed.is_initialized()
     rt.barrier()
     rt.print_once("hello")
     assert "hello" in capsys.readouterr().out
@@ -259,3 +272,49 @@ def test_driver_profile_trace(runs, monkeypatch):
     trace = json.loads((runs["tmp"] / "trace" / "trace.json").read_text())
     assert any("attn" in e.get("name", "") or "aten::" in e.get("name", "")
                for e in trace["traceEvents"])
+
+
+@pytest.mark.parametrize("key", ["zero_shard_optimizer", "ddp_find_unused_parameters",
+                                 "resume_from", "save_train_state"])
+def test_parallel_and_resume_training_keys_run(runs, key):
+    """The keys the port once refused (ROADMAP items 12 and 15) run: in one
+    process ZeRO-1 has no other rank to shard over and the DDP key is
+    ignored as in JAX, so the first step's loss is the plain run's;
+    ``save_train_state`` writes ``train_state.pt`` at the eval step;
+    ``resume_from`` continues from it on the same step clock (one step
+    saved, the second run trains step 2 alone)."""
+    from whisper_finetune_torch.optim.optimizers import AdamState
+    from whisper_finetune_torch.scripts import finetune
+    from whisper_finetune_torch.train.state_io import load_train_state
+
+    def config(tag, epochs=0.5, **training):
+        c = _config(runs["ds"], runs["ckpt"], str(runs["tmp"] / key / tag))
+        c["dataset"]["val_datasets"] = []  # no eval: only the keys' own work
+        c["training"].update(epochs=epochs, **training)
+        return c
+
+    base = [r["Train loss"] for r in _records(runs["torch"]) if "Train loss" in r][0]
+    if key in ("zero_shard_optimizer", "ddp_find_unused_parameters"):
+        state, run_dir = finetune.main(config("run", **{key: True}), device="cpu")
+        (loss,) = [r["Train loss"] for r in _records(run_dir) if "Train loss" in r]
+        assert loss == base and state.step == 1
+        assert isinstance(state.opt_state, AdamState)
+        assert all(m.shape == p.shape for m, (_, p) in zip(state.opt_state.mu,
+                                                           state.model.leaves()))
+        return
+    state, run_dir = finetune.main(config("saved", save_train_state=True), device="cpu")
+    path = Path(run_dir) / "train_state.pt"
+    assert path.is_file()
+    assert load_train_state(str(path), state, _optimizer(state), zero_shard=False).step == 1
+    if key == "save_train_state":
+        return
+    resumed, run_dir = finetune.main(config("resumed", epochs=1.0, resume_from=str(path)),
+                                     device="cpu")
+    assert resumed.step == resumed.opt_state.count == 2
+    assert [r["_step"] for r in _records(run_dir) if "Train loss" in r] == [2]
+
+
+def _optimizer(state):
+    from whisper_finetune_torch.optim import get_optimizer
+
+    return get_optimizer(state.model.leaves(), {"type": "adamw", "params": {"lr": 1e-4}})[0]

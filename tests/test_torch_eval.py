@@ -187,6 +187,59 @@ def test_val_namespace_matches_jax(tmp_path):
 
 
 def test_eval_refuses_more_than_one_process(monkeypatch):
+    """Evaluation across processes is served now (two ranks against one:
+    tests/test_torch_parallel_driver.py). The process group decides, not the
+    environment: with ``WORLD_SIZE`` 2 and no group a batch is scored whole,
+    as in one process; the row padding a group uses is JAX's ``_pad_rows``
+    (all -100 targets, valid crops)."""
+    from whisper_finetune_tpu.eval.evaluator import _pad_rows as j_pad_rows
+    from whisper_finetune_torch.eval.evaluator import _pad_rows
+
+    params, model = _models(DIMS, seed=2)
+    rng = np.random.default_rng(3)
+    batch = {"mel": rng.standard_normal((3, 16, 300)).astype(np.float32),
+             "dec_input": rng.integers(0, 300, (3, 24)).astype(np.int32),
+             "dec_output": rng.integers(0, 300, (3, 24)).astype(np.int32)}
+    step = TE.make_eval_step(TDims(**DIMS.to_dict()), TFC(compute_dtype="float32"))
+    want = TE.evaluate_single_dataset(step, model, [batch], "d", get_tokenizer(), device="cpu")
     monkeypatch.setattr(trt, "WORLD_SIZE", 2)
-    with pytest.raises(RuntimeError, match="item 12"):
-        TE.evaluate_single_dataset(None, None, [], "d", get_tokenizer(), device="cpu")
+    got = TE.evaluate_single_dataset(step, model, [batch], "d", get_tokenizer(), device="cpu")
+    assert got == want and got.num_samples == 3
+    for multiple in (2, 3, 4):
+        padded = _pad_rows({**batch, "crop_frames": np.full((3,), 1200, np.int32)}, multiple)
+        j_padded = j_pad_rows({**batch, "crop_frames": np.full((3,), 1200, np.int32)}, multiple)
+        assert padded.keys() == j_padded.keys()
+        assert all(np.array_equal(padded[k], j_padded[k]) for k in padded)
+
+
+def test_evaluate_cli_matches_jax(tmp_path, capsys, monkeypatch):
+    """``scripts/evaluate.py`` (on the CPU here; the card by default) against
+    the JAX package's on the same ``.pt`` and debug dataset: the same
+    ``val/*`` keys, WER and CER equal, token statistics to 1e-4."""
+    import argparse
+
+    from test_torch_config import stubbed_inverse_mel
+    from tools.make_debug_dataset import main as make_dataset
+    from whisper_finetune_tpu.models import save_checkpoint
+    from whisper_finetune_torch.scripts import evaluate
+
+    make_dataset(str(tmp_path / "ds"), n=8)
+    ckpt = str(tmp_path / "mini.pt")
+    save_checkpoint(ckpt, jax_init_params(jax.random.PRNGKey(4), AUDIO_DIMS), AUDIO_DIMS)
+    args = dict(checkpoint=ckpt, datasets=[str(tmp_path / "ds")], names=None,
+                split="validation", batch_size=4, select_n=5, language="de", dtype="float32")
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            evaluate.cli(["--checkpoint", ckpt, "--datasets", str(tmp_path / "ds")])
+    got = evaluate.main(argparse.Namespace(**args, attn_impl="auto", device="cpu"))
+    with stubbed_inverse_mel():
+        from whisper_finetune_tpu.scripts import evaluate as j_evaluate
+
+        capsys.readouterr()
+        j_evaluate.main(argparse.Namespace(**args, attn_impl="xla"))
+        out = capsys.readouterr().out
+    want = json.loads(out[out.rindex("\n{") + 1:])
+    assert got.keys() == want.keys() and "val/ds_wer" in got
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, rel=1e-4, abs=1e-6), k

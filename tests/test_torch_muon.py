@@ -190,6 +190,18 @@ def test_state_bridge_from_jax(momentum_dtype):
 
 
 def test_shard_axis_waits_for_data_parallel_slice():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tm.scale_by_muon(1e-3, shard_axis="data", shard_axis_size=2)
-    tm.scale_by_muon(1e-3, shard_axis="data", shard_axis_size=1)  # one device: plain path
+    """The data-parallel slice has come: a Muon sharded over 2 ranks splits
+    the Newton-Schulz of every stacked leaf whose layer count divides (the
+    JAX package's condition; no layer chunking then) and keeps the others
+    whole; outside a 2-rank process group it refuses to update. Its parity
+    with JAX across two ranks: tests/test_torch_parallel.py."""
+    mu = tm.scale_by_muon(1e-3, shard_axis="data", shard_axis_size=2, chunk_temp_mb=1e-4)
+    assert mu._sharded(torch.zeros(4, 8, 8)) and not mu._sharded(torch.zeros(3, 8, 8))
+    assert not mu._sharded(torch.zeros(8, 8))
+    assert mu._layers_per_chunk(torch.zeros(4, 16, 16), (16, 16)) is None
+    assert mu._layers_per_chunk(torch.zeros(3, 16, 16), (16, 16)) == 1
+    p = [torch.zeros(4, 8, 8)]
+    with pytest.raises(RuntimeError, match="process group has 1"):
+        mu.fused_apply([torch.ones(4, 8, 8)], mu.init(p), p)
+    one = tm.scale_by_muon(1e-3, shard_axis="data", shard_axis_size=1)  # one device: plain path
+    assert not one._sharded(torch.zeros(4, 8, 8))

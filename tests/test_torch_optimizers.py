@@ -227,6 +227,15 @@ def test_errors_match_jax(conf, match):
 
 
 def test_data_parallel_muon_raises():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        to.get_optimizer(_t_leaves(_tree(np.random.default_rng(0))), {"muon": True},
-                         data_shard_axis="data", data_axis_size=2)
+    """``get_optimizer`` hands the data axis to Muon as JAX's does (the
+    driver passes it without ZeRO): the Muon half shards over 2 ranks, the
+    auxiliary AdamW is untouched, and an update outside a 2-rank process
+    group raises."""
+    leaves = _t_leaves(_tree(np.random.default_rng(0)))
+    tx, _ = to.get_optimizer(leaves, {"muon": True}, data_shard_axis="data", data_axis_size=2)
+    assert tx.muon.shard_n == 2
+    params = [p for _, p in leaves]
+    with pytest.raises(RuntimeError, match="sharded over 2 ranks"):
+        tx.fused_apply([torch.zeros_like(p) for p in params], tx.init(params), params)
+    plain, _ = to.get_optimizer(leaves, {"muon": True})
+    assert plain.muon.shard_n == 1

@@ -49,7 +49,9 @@ def test_port_imports_no_jax():
         "whisper_finetune_torch.native, whisper_finetune_torch.data, "
         "whisper_finetune_torch.data.augment, whisper_finetune_torch.data.inverse_mel, "
         "whisper_finetune_torch.data.hf_utils, whisper_finetune_torch.eval, "
-        "whisper_finetune_torch.eval.evaluator, whisper_finetune_torch.scripts.finetune\n"
+        "whisper_finetune_torch.eval.evaluator, whisper_finetune_torch.scripts.finetune, "
+        "whisper_finetune_torch.parallel, whisper_finetune_torch.train.zero, "
+        "whisper_finetune_torch.train.state_io, whisper_finetune_torch.scripts.evaluate\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'whisper_finetune_tpu')]\n"
         "print(bad)\n"

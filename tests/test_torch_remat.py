@@ -242,6 +242,34 @@ def test_bad_policies_raise_jax_errors(setup, bad, match):
                   JFC(compute_dtype="float32", remat_policy=bad), train=True)
 
 
+@pytest.mark.parametrize("enc,last_only,dec,raises", [
+    (False, False, False, False), (True, False, False, True), (False, False, True, True),
+    (False, True, False, True),
+])
+def test_bad_policy_raises_only_where_a_block_is_rematted(setup, enc, last_only, dec, raises):
+    """A ``remat_policy`` outside the grammar raises JAX's error only when a
+    block is rematted (JAX raises when it traces one): with remat off both
+    forwards run, and their logits agree."""
+    params, model, mel, tok, _ = setup
+    kw = dict(compute_dtype="float32", remat_policy="everything", remat_encoder=enc,
+              remat_encoder_last_only=last_only, remat_decoder=dec)
+    def port():
+        return model(torch.from_numpy(mel), torch.from_numpy(tok).long(), TFC(**kw), train=True)
+
+    def jax_fwd():
+        return j_forward(params, jnp.asarray(mel), jnp.asarray(tok), DIMS, JFC(**kw), train=True)
+
+    if raises:
+        for fwd in (port, jax_fwd):
+            with pytest.raises(ValueError, match="Unknown remat_policy: everything"):
+                fwd()
+        with pytest.raises(ValueError, match="Unknown remat_policy"):
+            TFC(**kw).check_supported(DIMS.n_audio_layer)
+        return
+    np.testing.assert_allclose(port().detach().numpy(), np.asarray(jax_fwd()), atol=1e-4, rtol=0)
+    TFC(**kw).check_supported(DIMS.n_audio_layer)
+
+
 def test_policy_grammar():
     p = parse_remat_policy("save:enc_qkv, dec_qkv+offload:enc_mlp_h+save:enc_qkv")
     assert p.saved == {"enc_qkv", "dec_qkv"} and p.offloaded == {"enc_mlp_h"}

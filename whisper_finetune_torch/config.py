@@ -276,31 +276,29 @@ def validate_config(config: Dict[str, Any]) -> Dict[str, Any]:
 
 # Training keys the port does not honour yet when set (truthy), with the
 # ROADMAP item that brings them; ``auto`` is served for two of them.
+# ``ddp_find_unused_parameters`` is accepted and ignored, as in the JAX
+# package: the step reduces every gradient itself and wraps no DDP module.
 _AUTO_SERVED = ("split_optimizer_step", "manual_backward")
 _UNPORTED_KEYS = (
     ("split_optimizer_step", 13),
     ("manual_backward", 13),
     ("manual_precast_weights", 13),
-    ("zero_shard_optimizer", 12),
-    ("ddp_find_unused_parameters", 12),
-    ("resume_from", 15),
-    ("save_train_state", 15),
 )
 
 
 def check_training_keys(config: Dict[str, Any]) -> List[str]:
     """Raise ``ValueError`` naming its ROADMAP item for a training key set to
     a value the port cannot honour yet (a split optimizer program, the
-    manual backward, ZeRO-1, DDP, resume and train-state saves). Returns the
-    notes to log once for the keys it serves differently: ``auto`` split and
-    manual backward run the one fused step (the same update), and XLA's
+    manual backward, manual precast weights). Returns the notes to log once
+    for the keys it serves differently: ``auto`` split and manual backward
+    run the one fused step (the same update), and XLA's
     ``compiler_options`` mean nothing here."""
     tr = config["training"]
     for key, item in _UNPORTED_KEYS:
         if tr[key] and not (key in _AUTO_SERVED and tr[key] == "auto"):
             raise ValueError(
                 f"training.{key}={tr[key]!r} is not supported by the PyTorch port yet "
-                f"(ROADMAP item {item}); the port runs the fused single-card step")
+                f"(ROADMAP item {item}); the port runs the fused single-program step")
     notes = []
     if tr["split_optimizer_step"] == "auto" and config["optimizer"].get("muon"):
         notes.append("split_optimizer_step: auto runs the fused single-program step on the "

@@ -11,8 +11,14 @@ predicted log-prob, entropy, confidence) on the device under
 ``torch.no_grad``: only (B, T) tensors come to the host, never the
 (B, T, vocab) logits. Its forward goes through the attention kernels of the
 run's ``attn_impl`` (forward only). Text handling and aggregation run on the
-host. The JAX evaluator's mesh and multi-host branches are the one-card case
-here: a world size above 1 raises (ROADMAP item 12).
+host.
+
+Across processes (the JAX evaluator's SPMD mesh branch) every rank builds
+the same host batch, pads its rows to a multiple of the world size
+(:func:`_pad_rows`: padding rows are all ``-100`` and skipped), runs the
+eval step on its own row slice and all-gathers the per-row statistics
+(``parallel.all_gather_rows``), so every rank computes the same ``val/*``
+in lockstep.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 import whisper_finetune_torch.runtime as rt
+from whisper_finetune_torch import parallel
 from whisper_finetune_torch.data.loader import to_device
 from whisper_finetune_torch.eval.metrics import (
     DatasetMetrics,
@@ -91,10 +98,36 @@ def make_eval_step(dims: ModelDimensions, fcfg: ForwardConfig,
     return step
 
 
-def _check_world_size() -> None:
-    if rt.WORLD_SIZE > 1:
-        raise RuntimeError("evaluation across processes is ROADMAP item 12; "
-                           "the port evaluates on one card")
+def _pad_rows(batch: Dict, multiple: int) -> Dict:
+    """Pad the batch dimension to a multiple so it splits evenly over the
+    ranks. Padding rows carry all -100 targets, so the per-utterance loop
+    skips them (empty reference)."""
+    n = next(iter(batch.values())).shape[0]
+    pad = (-n) % multiple
+    if pad == 0:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if k == "dec_output":
+            fill = -100
+        elif k == "crop_frames":
+            fill = 3000  # keep the featurize crop valid for padding rows
+        else:
+            fill = 0
+        widths = [(0, pad)] + [(0, 0)] * (np.ndim(v) - 1)
+        out[k] = np.pad(np.asarray(v), widths, constant_values=fill)
+    return out
+
+
+def _run_eval_step(eval_step: Callable, params, batch: Dict, device) -> Tuple:
+    """The eval step's five (B, T) statistics for the whole host ``batch``,
+    as numpy: on this rank's row slice and all-gathered in a process group,
+    else on the whole batch."""
+    if not parallel.is_initialized():
+        return tuple(x.cpu().numpy() for x in eval_step(params, to_device(batch, device)))
+    rows = {k: np.asarray(parallel.shard_rows(np.asarray(v))) for k, v in batch.items()}
+    stats = eval_step(params, to_device(rows, device))
+    return tuple(parallel.all_gather_rows(x.contiguous()).cpu().numpy() for x in stats)
 
 
 def evaluate_single_dataset(eval_step: Callable, params, batches: Iterable, dataset_name: str,
@@ -102,19 +135,21 @@ def evaluate_single_dataset(eval_step: Callable, params, batches: Iterable, data
     """Evaluate one dataset. ``batches`` yields numpy dicts with ``mel`` or
     ``audio`` + ``crop_frames``, and ``dec_input``, ``dec_output`` (the
     train pipeline's contract without prompts or timestamps); each goes to
-    ``device`` for the eval step."""
-    _check_world_size()
+    ``device`` for the eval step; in a process group each rank evaluates
+    its row slice and every rank gets every row's statistics."""
     special_ids = set(tokenizer.special_tokens.values())
     per_utterance: List[PerUtteranceMetrics] = []
     spec = VOCAB_SPECS["v0"]
 
     for batch in batches:
         keys = ("mel",) if "mel" in batch else ("audio", "crop_frames")
-        device_batch = to_device({k: batch[k] for k in keys + ("dec_input", "dec_output")},
-                                 device)
-        pred, nll, pred_lp, entropy, conf = (
-            x.cpu().numpy() for x in eval_step(params, device_batch))
-        targets = np.asarray(batch["dec_output"])
+        host = {k: batch[k] for k in keys + ("dec_input", "dec_output")}
+        if parallel.is_initialized():
+            host = _pad_rows(host, parallel.world())
+        pred, nll, pred_lp, entropy, conf = _run_eval_step(eval_step, params, host, device)
+        # the (possibly row-padded) batch, so indices align; padded rows are
+        # all -100 and fall through the empty-reference skip
+        targets = np.asarray(host["dec_output"])
 
         for i in range(pred.shape[0]):
             t_ids = targets[i]

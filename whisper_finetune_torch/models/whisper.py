@@ -136,10 +136,16 @@ class ForwardConfig:
     def cross_attn(self) -> str:
         return self.attn_impl_cross or self.attn_impl
 
-    def check_supported(self) -> None:
+    def check_supported(self, n_audio_layer: Optional[int] = None, decoder: bool = True) -> None:
         """Raise ``ValueError`` for a ``remat_policy`` outside the grammar
-        (JAX raises the same errors when it traces a rematted block)."""
-        parse_remat_policy(self.remat_policy)
+        where a block is rematted, as JAX raises the same errors only when it
+        traces a rematted block: the encoder's (given its ``n_audio_layer``:
+        every block under ``remat_encoder``, the last of more than one under
+        ``remat_encoder_last_only``) and, with ``decoder``, the decoder's."""
+        enc = n_audio_layer is not None and (
+            self.remat_encoder or (self.remat_encoder_last_only and n_audio_layer > 1))
+        if enc or (decoder and self.remat_decoder):
+            parse_remat_policy(self.remat_policy)
 
 
 def dsa_layer_flags(fcfg: ForwardConfig, n_layers: int) -> np.ndarray:
@@ -513,11 +519,14 @@ def _stochastic(block, keep_prob: float):
 def _remat(fcfg: ForwardConfig):
     """``run(fn, remat, *args)``: ``fn(*args)``, checkpointed under the
     config's ``remat_policy`` where ``remat`` and gradients are on."""
-    policy = parse_remat_policy(fcfg.remat_policy)
-    kwargs = {} if policy.is_full else {"context_fn": policy.contexts}
+    kwargs = None  # the policy is read at the first rematted block
 
     def run(fn, remat: bool, *args):
+        nonlocal kwargs
         if remat and torch.is_grad_enabled():
+            if kwargs is None:
+                policy = parse_remat_policy(fcfg.remat_policy)
+                kwargs = {} if policy.is_full else {"context_fn": policy.contexts}
             # Every random value a block uses is drawn outside it and passed
             # in, so no RNG state is stashed for the recompute.
             return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
@@ -597,7 +606,7 @@ def encoder_forward(params: Params, mel: torch.Tensor, dims: ModelDimensions,
     """mel (B, n_mels, 3000) -> audio features (B, n_audio_ctx, d), float32.
     A training forward with stochastic depth or deep SpecAugment takes its
     random numbers from ``draws``, or draws them from ``generator``."""
-    fcfg.check_supported()
+    fcfg.check_supported(dims.n_audio_layer, decoder=False)
     enc = params["encoder"]
     dtype, L = fcfg.dtype, dims.n_audio_layer
     x = conv_stem(enc, mel, dims, dtype)

@@ -12,7 +12,12 @@ the JAX package's layout, so both scales are the reference's numbers with
 matching on and off.
 
 Transformer blocks are stacked on a leading layer axis, so one leaf holds all
-L layers' matrices and one batched Newton-Schulz serves them.
+L layers' matrices and one batched Newton-Schulz serves them. Across
+processes (``shard_axis_size`` ranks of the data-parallel group, without
+ZeRO) each rank orthogonalises its row slice of the layer axis and one
+all-gather (``parallel.all_gather_rows``) rebuilds the whole leaf's update,
+as the JAX package shards it over its data axis; a leaf whose layer count
+does not divide stays whole on every rank.
 
 :meth:`Muon.fused_apply` is the whole update for every leaf, IN PLACE:
 parameters and momentum buffers are overwritten leaf by leaf, so only one
@@ -28,6 +33,7 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
+from whisper_finetune_torch import parallel
 from whisper_finetune_torch.optim.quantized import (
     BLOCK,
     MIN_QUANT_SIZE,
@@ -148,12 +154,8 @@ class Muon:
         momentum_dtype: Optional[str] = None,
         chunk_temp_mb: Optional[float] = 128.0,
     ):
-        if shard_axis is not None and shard_axis_size > 1:
-            raise NotImplementedError(
-                "Muon's Newton-Schulz sharded over the layer axis waits for the "
-                "data-parallel slice (ROADMAP queue 1, item 12)"
-            )
         _ns_coeff_table(ns_steps, ns_coeffs)  # validates both
+        self.shard_n = shard_axis_size if shard_axis is not None else 1
         self.learning_rate = learning_rate
         self.momentum, self.weight_decay, self.nesterov = momentum, weight_decay, nesterov
         self.ns_steps, self.ns_coeffs = ns_steps, ns_coeffs
@@ -181,8 +183,12 @@ class Muon:
 
         return MuonState(0, [zero(p) for p in params])
 
+    def _sharded(self, g: torch.Tensor) -> bool:
+        """Whether this leaf's Newton-Schulz splits over the ranks."""
+        return self.shard_n > 1 and g.dim() >= 3 and g.shape[0] % self.shard_n == 0
+
     def _layers_per_chunk(self, g: torch.Tensor, shape) -> Optional[int]:
-        if self.chunk_temp_mb is None or not self.stacked or g.dim() < 3:
+        if self.chunk_temp_mb is None or not self.stacked or g.dim() < 3 or self._sharded(g):
             return None
         max_elems = int(self.chunk_temp_mb * 1e6 / 4)
         per_layer = 1
@@ -205,7 +211,12 @@ class Muon:
                   if isinstance(m_s, QMoment) else m_s.to(g.dtype))
         m = self.momentum * m_prev + g
         upd = g + self.momentum * m if self.nesterov else m
-        o = newton_schulz_orthogonalize(upd, steps=self.ns_steps, coeffs=self.ns_coeffs)
+        if self._sharded(upd):
+            local = parallel.shard_rows(upd, self.shard_n)
+            o = parallel.all_gather_rows(
+                newton_schulz_orthogonalize(local, steps=self.ns_steps, coeffs=self.ns_coeffs))
+        else:
+            o = newton_schulz_orthogonalize(upd, steps=self.ns_steps, coeffs=self.ns_coeffs)
         eff_lr = lr * (rms_match_scale(shape, self.match_factor) if self.match else 1.0)
         p.add_(-(eff_lr * muon_shape_scale(shape)) * o - (lr * self.weight_decay) * p)
         if isinstance(m_s, QMoment):
@@ -222,6 +233,9 @@ class Muon:
         """Update ``params`` and the momentum buffers in place with
         ``grads * g_scale`` (gradients in any float dtype; they are upcast
         per leaf or slice); returns the state with its count advanced."""
+        if self.shard_n > 1 and parallel.world() != self.shard_n:
+            raise RuntimeError(f"Muon is sharded over {self.shard_n} ranks but the "
+                               f"process group has {parallel.world()}")
         lr = self.lr(state.count)
         for g, m_s, p in zip(grads, state.momentum, params):
             shape = self._matrix_shape(g)

@@ -4,15 +4,22 @@
 The same module-global facade as the JAX package (and the reference's
 ``runtime.py``), so call sites never check the rank:
 
-* the rank globals come from the environment as ``torchrun`` sets it
-  (``RANK``, ``WORLD_SIZE``); one process drives one card. A world size
-  above 1 raises: data parallelism is ROADMAP item 12;
-* :func:`barrier` is a no-op at world size 1;
+* :func:`setup_distributed` reads ``torchrun``'s environment (``RANK``,
+  ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``). At a
+  world size above 1 it starts the default ``torch.distributed`` process
+  group (``nccl`` for a card, ``gloo`` on the CPU, or the backend the caller
+  names) that ``parallel/`` runs its collectives in, and it raises when that
+  fails instead of carrying on alone; one process drives one card
+  (``cuda:LOCAL_RANK`` unless the caller names a device). There is no DDP
+  wrapper: the train step reduces the gradient sums itself, once per
+  optimizer step (``train/step.py``);
+* :func:`barrier` waits for every process; :func:`cleanup` destroys the
+  group;
 * metrics go to W&B when it is installed *and* enabled (imported only
   then), and always to ``metrics.jsonl`` in the run directory, with the
   same records as the JAX package: ``_step``, ``_time`` and the values,
   histogram records (``{"_type": "histogram", "counts", "edges"}``) as
-  they are.
+  they are. Only rank 0 logs.
 """
 
 from __future__ import annotations
@@ -20,30 +27,59 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Dict, Optional
+from datetime import timedelta
+from typing import Any, Dict, Optional, Union
+
+import torch
 
 RANK = 0
 WORLD_SIZE = 1
+LOCAL_RANK = 0
 IS_MAIN = True
 
 _wandb = None
 _metrics_file = None
 
 
-def setup_distributed() -> None:
-    """Read the rank globals from ``RANK`` / ``WORLD_SIZE`` (1 process when
-    unset)."""
-    global RANK, WORLD_SIZE, IS_MAIN
+def setup_distributed(device: Union[str, torch.device] = "cuda",
+                      backend: Optional[str] = None,
+                      timeout_s: float = 1800.0) -> torch.device:
+    """Read the rank globals from ``torchrun``'s environment (one process
+    when ``WORLD_SIZE`` is unset or 1) and return this process's device:
+    ``device`` itself, where a bare ``cuda`` means ``cuda:LOCAL_RANK``.
+
+    At ``WORLD_SIZE > 1``, or when the caller names a ``backend``, it starts
+    the default process group at ``MASTER_ADDR:MASTER_PORT`` with that
+    backend (default ``nccl`` for a card, ``gloo`` for the CPU) and raises
+    ``RuntimeError`` if it cannot."""
+    global RANK, WORLD_SIZE, LOCAL_RANK, IS_MAIN
+    import torch.distributed as dist
 
     world_size = int(os.environ.get("WORLD_SIZE", "1"))
     rank = int(os.environ.get("RANK", "0"))
-    if world_size > 1:
-        raise RuntimeError(
-            f"WORLD_SIZE={world_size}: the PyTorch port trains on one card; "
-            "data parallelism (DDP, ZeRO-1) is ROADMAP item 12"
-        )
-    RANK, WORLD_SIZE = rank, world_size
+    local_rank = int(os.environ.get("LOCAL_RANK", str(rank)))
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", local_rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    wants_group = world_size > 1 or backend is not None
+    if wants_group and not (dist.is_available() and dist.is_initialized()):
+        backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+        addr = os.environ.get("MASTER_ADDR", "localhost")
+        port = os.environ.get("MASTER_PORT", "29500")
+        try:
+            kwargs = {"device_id": dev} if backend == "nccl" else {}
+            dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
+                                    world_size=world_size, rank=rank,
+                                    timeout=timedelta(seconds=timeout_s), **kwargs)
+        except Exception as exc:
+            raise RuntimeError(
+                f"rank {rank} of {world_size}: could not start the {backend} process "
+                f"group at {addr}:{port}: {exc}") from exc
+    RANK, WORLD_SIZE, LOCAL_RANK = rank, world_size, local_rank
     IS_MAIN = RANK == 0
+    return dev
 
 
 def print_once(*args, **kwargs) -> None:
@@ -52,14 +88,27 @@ def print_once(*args, **kwargs) -> None:
 
 
 def barrier() -> None:
-    """Wait for every process: a no-op in the one process the port runs."""
+    """Wait for every process of the group (a no-op in one process)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
-def cleanup() -> None:
+def _close_metrics() -> None:
     global _metrics_file
     if _metrics_file is not None:
         _metrics_file.close()
         _metrics_file = None
+
+
+def cleanup() -> None:
+    """Close the metrics file and destroy the process group, if any."""
+    import torch.distributed as dist
+
+    _close_metrics()
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -141,4 +190,4 @@ def finish_wandb() -> None:
     if _wandb is not None:
         _wandb.finish()
         _wandb = None
-    cleanup()
+    _close_metrics()

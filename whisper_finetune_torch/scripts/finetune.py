@@ -9,12 +9,20 @@ and gradient telemetry, periodic eval with best/step checkpoints, the
 divergence kill-switch, the last checkpoint and the peak-memory report.
 
 It runs on one card (``--device cuda``, the default; it raises without
-one) or, when asked, on the CPU (``--device cpu``). One process drives one
-card, so the world size of the step math is 1; data parallelism, the split
-optimizer program, the manual backward, ZeRO-1 and resume are refused with
-the ROADMAP item that brings them (``config.check_training_keys``). The
-host builds samples in loader threads; each optimizer step's batch goes to
-the card from pinned memory with ``non_blocking`` copies while the card
+one) or, when asked, on the CPU (``--device cpu``). Under ``torchrun`` (see
+``launchers/torchrun_finetune.sh``) one process drives one card
+(``cuda:LOCAL_RANK``): the ranks read disjoint shards of each epoch
+(``ShardedSampler``), seed their random draws with ``seed + rank``, split
+the global ``accum_grad_steps`` between them and reduce the gradients once
+an optimizer step; ``zero_shard_optimizer`` shards the optimizer state
+(ZeRO-1), and without it Muon's Newton-Schulz splits over the ranks. Rank 0
+logs and writes the ``.pt`` checkpoints; the ranks meet at barriers around
+them. ``training.save_train_state`` writes the whole train state at every
+eval step (``train/state_io.py``) and ``training.resume_from`` continues
+from one. The split optimizer program and the manual backward are refused
+with the ROADMAP item that brings them (``config.check_training_keys``).
+The host builds samples in loader threads; each optimizer step's batch goes
+to the card from pinned memory with ``non_blocking`` copies while the card
 still runs the previous step.
 """
 
@@ -27,7 +35,7 @@ import json
 import os
 import time
 from pprint import pprint
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -67,13 +75,16 @@ from whisper_finetune_torch.eval import (
 from whisper_finetune_torch.models import save_checkpoint
 from whisper_finetune_torch.models.lora import LoRAUpdateTracker, get_lora_param_stats
 from whisper_finetune_torch.optim import get_optimizer, get_schedule
+from whisper_finetune_torch.parallel import DATA_AXIS
 from whisper_finetune_torch.tokenizer import get_tokenizer
+from whisper_finetune_torch.train.state_io import load_train_state, save_train_state
 from whisper_finetune_torch.train.step import (
     TrainState,
     grad_histograms,
     make_train_step,
     trainable_leaves,
 )
+from whisper_finetune_torch.train.zero import zero_shard_state
 from whisper_finetune_torch.utils import (
     calculate_training_steps,
     calculate_val_steps,
@@ -206,7 +217,11 @@ def _evaluate_and_maybe_checkpoint(model, dims, eval_step, dev_loaders: Dict, to
 
 def main_loop(state: TrainState, step_fn, train_stream, accum_local: int, dev_loaders: Dict,
               eval_step, dims, save_dir: str, t_config: Dict, group_metadata, schedule,
-              tokenizer, generator: torch.Generator, device) -> TrainState:
+              tokenizer, generator: torch.Generator, device,
+              save_state: Optional[Callable[[TrainState], None]] = None) -> TrainState:
+    """Steps ``state.step + 1 .. train_steps`` (a resumed state runs only the
+    rest, on the same global step clock). ``save_state`` (every rank calls
+    it) writes the whole train state at eval steps."""
     model = state.model
     lora_tracker = None
     if t_config.get("is_lora_run", False):
@@ -234,16 +249,22 @@ def main_loop(state: TrainState, step_fn, train_stream, accum_local: int, dev_lo
         micro = [next(train_stream) for _ in range(accum_local)]
         return to_device(stack_microbatches(micro), device)
 
+    start_step = int(state.step)
+    if start_step >= train_steps:
+        rt.print_once(f"Resumed state is already at step {start_step} >= "
+                      f"train_steps {train_steps}; nothing to train.")
+
     try:
         from tqdm import tqdm
 
-        pbar = tqdm(total=train_steps, disable=not rt.IS_MAIN, dynamic_ncols=True)
+        pbar = tqdm(total=train_steps, initial=start_step, disable=not rt.IS_MAIN,
+                    dynamic_ncols=True)
     except ImportError:
         pbar = None
 
-    batch = next_device_batch()
+    batch = next_device_batch() if start_step < train_steps else None
     last_step_time = None
-    for step in range(1, train_steps + 1):
+    for step in range(start_step + 1, train_steps + 1):
         if profile_dir and step == 3 and rt.IS_MAIN:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.device(device).type == "cuda":
@@ -311,6 +332,8 @@ def main_loop(state: TrainState, step_fn, train_stream, accum_local: int, dev_lo
                                "the loss is unable to converge.")
 
         if is_eval_step:
+            if save_state is not None:
+                save_state(state)
             if dev_loaders:
                 min_wer = _evaluate_and_maybe_checkpoint(
                     model, dims, eval_step, dev_loaders, tokenizer, save_dir, step=step,
@@ -342,13 +365,17 @@ def main_loop(state: TrainState, step_fn, train_stream, accum_local: int, dev_lo
 # main
 # ---------------------------------------------------------------------------
 
-def main(config: Dict, device="cuda"):
-    """Train as ``config`` says on ``device``. Returns (the final
-    :class:`TrainState`, the run directory)."""
+def main(config: Dict, device="cuda", backend: Optional[str] = None):
+    """Train as ``config`` says on ``device`` (a bare ``cuda`` is this
+    rank's card, ``cuda:LOCAL_RANK``). Under ``torchrun`` (``WORLD_SIZE`` >
+    1), or with a ``backend`` named, the ranks join a process group over
+    ``backend`` (default ``nccl`` on cards, ``gloo`` on the CPU). Returns
+    (the final :class:`TrainState`, the run directory); the caller ends the
+    process group (``runtime.cleanup``)."""
     config = validate_config(config)
     notes = check_training_keys(config)
-    dev = resolve_device(device)
-    rt.setup_distributed()
+    resolve_device(device)
+    dev = rt.setup_distributed(device, backend)
     generator = torch.Generator(device=dev)
     set_seed(int(config["seed"]) + rt.RANK, generator)
 
@@ -455,6 +482,9 @@ def main(config: Dict, device="cuda"):
     )
     train_ds = SampleDataset(train_hf, builder, seed=int(config["seed"]))
 
+    if rt.WORLD_SIZE > 1 and warmup_dataset_idx is not None:
+        raise ValueError("dataset.warmup_dataset_idx is not supported with multi-host data "
+                         "sharding yet.")
     if warmup_dataset_idx is not None:
         warmup_start, warmup_end = get_dataset_boundary_indices(
             dataset_sizes)[warmup_dataset_idx]
@@ -501,9 +531,28 @@ def main(config: Dict, device="cuda"):
     # -- optimizer / scheduler ---------------------------------------------------
     schedule = get_schedule(config["lr_scheduler"], config["training"]["train_steps"])
     named = trainable_leaves(model)
+    zero_shard = bool(config["training"].get("zero_shard_optimizer")) and rt.WORLD_SIZE > 1
+    # Without ZeRO, Muon's Newton-Schulz splits over the ranks; under ZeRO
+    # the update itself is already sharded (no double slicing), as in JAX.
     opt, group_metadata = get_optimizer(named, config["optimizer"], schedule=schedule,
-                                        is_lora_run=is_lora_run)
-    state = TrainState(model, opt.init([p for _, p in named]), 0)
+                                        is_lora_run=is_lora_run,
+                                        data_shard_axis=None if zero_shard else DATA_AXIS,
+                                        data_axis_size=1 if zero_shard else rt.WORLD_SIZE)
+    leaves = [p for _, p in named]
+    state = TrainState(model, opt.init(leaves), 0)
+    if zero_shard:
+        rt.print_once(f"ZeRO-1: optimizer state sharded over {rt.WORLD_SIZE} ranks")
+        state = TrainState(model, zero_shard_state(opt, state.opt_state, leaves), 0)
+    if config["training"].get("resume_from"):
+        state = load_train_state(config["training"]["resume_from"], state, opt, zero_shard)
+        rt.print_once(f"Resumed training state from {config['training']['resume_from']} "
+                      f"at step {state.step}")
+    save_state = None
+    if config["training"].get("save_train_state"):
+        path = os.path.join(config["save_dir"], "train_state.pt")
+
+        def save_state(s):
+            save_train_state(path, s, opt, zero_shard)
 
     if rt.IS_MAIN:
         pprint(config)
@@ -517,6 +566,7 @@ def main(config: Dict, device="cuda"):
         max_grad_norm=float(config["training"]["max_grad_norm"]),
         accum_dtype=config["training"].get("grad_accum_dtype"),
         grad_hist_every=int(config["training"]["val_steps"]),
+        zero_shard=zero_shard,
         device=dev,
     )
     eval_step = make_eval_step(dims, fcfg, n_mels=dims.n_mels)
@@ -538,7 +588,7 @@ def main(config: Dict, device="cuda"):
         state = main_loop(
             state, step_fn, train_stream, local_accum_grad_steps, dev_loaders, eval_step,
             dims, config["save_dir"], config["training"], group_metadata, schedule,
-            tokenizer, generator, dev)
+            tokenizer, generator, dev, save_state)
 
         if dev.type == "cuda":
             peak = torch.cuda.max_memory_allocated(dev)
@@ -553,11 +603,14 @@ def cli(argv: Optional[list] = None) -> None:
     parser.add_argument("--config", type=str, required=True,
                         help="Path to the configuration YAML file")
     parser.add_argument("--device", default="cuda",
-                        help="cuda (default; raises without a card) or cpu")
+                        help="cuda (default: this rank's card; raises without one) or cpu")
     args = parser.parse_args(argv)
     config = read_config(args.config)
     config["path_to_config"] = args.config
-    main(config, device=args.device)
+    try:
+        main(config, device=args.device)
+    finally:
+        rt.cleanup()
 
 
 if __name__ == "__main__":

@@ -23,9 +23,22 @@ With ``grad_hist_every`` the step also returns per-module histograms of
 the step's gradients (:func:`grad_histograms`, the ``wandb.watch(log="all")``
 telemetry) on every ``grad_hist_every``-th optimizer step, zeros otherwise.
 
-This is the single-device, non-split path. The split update, the manual
-backward, ZeRO-1 and data parallelism come later (ROADMAP queue 1, items 12
-and 13).
+Data parallelism (one process per card, ``parallel/``) keeps the JAX
+step's shape rather than DDP's bucketed hooks: each rank accumulates its
+local microbatches, then ONE reduction of the gradient sums per optimizer
+step, in the accumulator dtype (what the reference's ``no_sync`` amounts
+to); the mean divisor ``1 / (accum_local * world)`` and the clip factor are
+computed from the reduced sums and ride in the one ``g_scale``. With
+``zero_shard`` at a world above 1 the step is ZeRO-1 (JAX's
+``zero_shard=True`` branch): gradients of the leaves that shard
+(:func:`train.zero.zero_opt_partition`) are reduce-scattered over rows and
+divided by the world, the others averaged; the global norm is rebuilt from
+the shards; the optimizer updates each rank's row views of the parameters
+with its shard of the state (:func:`train.zero.zero_shard_state`), and the
+updated rows are all-gathered.
+
+This is the non-split path. The split update and the manual backward come
+later (ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import torch
 
+from whisper_finetune_torch import parallel
 from whisper_finetune_torch._device import resolve_device
 from whisper_finetune_torch.models.dims import ModelDimensions
 from whisper_finetune_torch.models.whisper import (
@@ -45,6 +59,8 @@ from whisper_finetune_torch.models.whisper import (
     flatten,
     forward_impl,
 )
+from whisper_finetune_torch.optim.quantized import _div
+from whisper_finetune_torch.train.zero import zero_opt_partition
 
 IGNORE_INDEX = -100
 
@@ -174,16 +190,34 @@ def _leaf_histogram(leaf: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     return counts
 
 
-def grad_histograms(named_leaves, bins: int) -> Dict[str, tuple]:
+def grad_histograms(named_leaves, bins: int,
+                    shard_flags: Optional[Sequence[bool]] = None) -> Dict[str, tuple]:
     """Per-module-group ``{name: (counts, lo, hi)}`` histograms of
     ``(path, tensor)`` pairs (gradients or parameters), computed on their
     device: one range per group (the min and max of its leaves, float32),
-    counts summed over the group's leaves."""
+    counts summed over the group's leaves. ``shard_flags`` (one bool a leaf)
+    marks leaves that are this rank's ZeRO row shard: their ranges take the
+    min and max across ranks and their counts the sum, so the result is the
+    histogram of the whole gradient on every rank (JAX's pmin / pmax /
+    psum)."""
+    named_leaves = list(named_leaves)
+    flags = [False] * len(named_leaves) if shard_flags is None else list(shard_flags)
     out = {}
-    for name, leaves in _hist_groups(named_leaves).items():
-        lo = torch.stack([leaf.detach().min().float() for leaf in leaves]).min()
-        hi = torch.stack([leaf.detach().max().float() for leaf in leaves]).max()
-        counts = sum(_leaf_histogram(leaf, lo, hi, bins) for leaf in leaves)
+    for name, items in _hist_groups(
+            [(path, (leaf, f)) for (path, leaf), f in zip(named_leaves, flags)]).items():
+        los = [leaf.detach().min().float() for leaf, _ in items]
+        his = [leaf.detach().max().float() for leaf, _ in items]
+        sharded = [i for i, (_, f) in enumerate(items) if f]
+        if sharded:
+            lo_s = parallel.all_reduce(torch.stack([los[i] for i in sharded]), "min")
+            hi_s = parallel.all_reduce(torch.stack([his[i] for i in sharded]), "max")
+            for k, i in enumerate(sharded):
+                los[i], his[i] = lo_s[k], hi_s[k]
+        lo, hi = torch.stack(los).min(), torch.stack(his).max()
+        counts = sum(_leaf_histogram(leaf, lo, hi, bins) for leaf, f in items if not f)
+        if sharded:
+            counts = counts + parallel.all_reduce(
+                sum(_leaf_histogram(items[i][0], lo, hi, bins) for i in sharded))
         out[name] = (counts, lo, hi)
     return out
 
@@ -208,6 +242,7 @@ def make_train_step(
     accum_dtype: Optional[str] = None,
     grad_hist_every: Optional[int] = None,
     grad_hist_bins: int = 64,
+    zero_shard: bool = False,
     device="cuda",
 ) -> Callable[..., tuple]:
     """Build ``step(state, batch, generator=None, draws=None) -> (state, loss)``,
@@ -226,9 +261,14 @@ def make_train_step(
     replaces the stochastic-depth and deep-SpecAugment draws that the step
     otherwise makes from ``generator``. The parameters and optimizer buffers
     update in place; the returned loss is a 0-dim float32 tensor (reading it
-    syncs)."""
+    syncs).
+
+    In a process group (``parallel``) the batch is this rank's, the loss is
+    the mean over ranks and the update is the same on every rank. With
+    ``zero_shard`` at a world above 1, ``state.opt_state`` is this rank's
+    shard (:func:`whisper_finetune_torch.train.zero.zero_shard_state`)."""
     resolve_device(device)
-    fcfg.check_supported()
+    fcfg.check_supported(dims.n_audio_layer)
     if not hasattr(tx, "fused_apply"):
         raise TypeError(f"{type(tx).__name__} has no fused_apply(grads, state, params, g_scale)")
     acc_dt = getattr(torch, accum_dtype) if accum_dtype else None
@@ -276,17 +316,41 @@ def make_train_step(
             loss_sum = loss_sum + loss.detach()
         return grad_sum, accum, loss_sum / accum
 
-    def reduce_sums(grad_sum, accum: int):
-        """The float32 scalar that turns the sums into clipped means."""
+    def reduce_sums(grad_sum, accum: int, n: int):
+        """The cross-rank sum of the gradient sums, in place and in the
+        accumulator dtype, and the float32 scalar that turns them into
+        clipped means."""
+        for g in grad_sum:
+            parallel.all_reduce(g)
         dev = grad_sum[0].device
-        scale = torch.tensor(1.0 / accum, dtype=torch.float32, device=dev)
+        scale = torch.tensor(1.0 / (accum * n), dtype=torch.float32, device=dev)
         if max_grad_norm is None:
             return scale
         sq = sum(torch.sum(torch.square(g.float())) for g in grad_sum)
         gnorm = torch.sqrt(sq) * scale
-        limit = torch.tensor(max_grad_norm, dtype=torch.float32, device=dev)
-        clip = torch.clamp(limit / (gnorm + 1e-6), max=1.0)
-        return scale * clip
+        return scale * clip_factor(gnorm)
+
+    def clip_factor(gnorm):
+        limit = torch.tensor(max_grad_norm, dtype=torch.float32, device=gnorm.device)
+        return torch.clamp(limit / (gnorm + 1e-6), max=1.0)
+
+    def reduce_to_shards(grad_sum, accum: int, n: int, flags):
+        """ZeRO-1: each leaf's mean gradient, as this rank's row shard for
+        the leaves that shard (reduce-scattered over rows, then / n) and
+        whole for the others (summed, then / n), in the accumulator dtype
+        and then float32 as JAX casts it; ``grad_sum`` is emptied as it
+        goes, so the whole sums are freed leaf by leaf."""
+        out = []
+        for j, f in enumerate(flags):
+            g, grad_sum[j] = grad_sum[j], None
+            if accum > 1:
+                g = _div(g, accum)
+            g = _div(parallel.reduce_scatter_rows(g) if f else parallel.all_reduce(g), n)
+            out.append(g.float() if acc_dt else g)
+        return out
+
+    def want_hists(state) -> bool:
+        return bool(grad_hist_every) and (state.step + 1) % grad_hist_every == 0
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
@@ -295,19 +359,46 @@ def make_train_step(
         leaves = [p for _, p in named]
         grad_sum, accum, loss = accumulate(state.model.params(), leaves, batch, generator,
                                            draws)
-        g_scale = reduce_sums(grad_sum, accum)
+        n = parallel.world()
+        loss = _div(parallel.all_reduce(loss), n)
         hists = None
-        if grad_hist_every:
-            named_grads = [(path, g) for (path, _), g in zip(named, grad_sum)]
-            if (state.step + 1) % grad_hist_every == 0:
-                scale = 1.0 / accum  # as JAX: float32 ranges times float32(1 / accum)
-                hists = {name: (c, lo * scale, hi * scale) for name, (c, lo, hi)
-                         in grad_histograms(named_grads, grad_hist_bins).items()}
-            else:
-                hists = _zeros_histograms(named_grads, grad_hist_bins, leaves[0].device)
-        opt_state = tx.fused_apply(grad_sum, state.opt_state, leaves, g_scale=g_scale)
+        if zero_shard and n > 1:
+            flags = zero_opt_partition(tx, state.opt_state, leaves, n)
+            grads = reduce_to_shards(grad_sum, accum, n, flags)
+            if want_hists(state):
+                hists = grad_histograms([(path, g) for (path, _), g in zip(named, grads)],
+                                        grad_hist_bins, flags)
+            g_scale = None
+            if max_grad_norm is not None:
+                # The global norm from the shards: shard squares summed over
+                # the ranks, whole leaves' squares counted once.
+                sq_shard = sq_whole = torch.zeros((), dtype=torch.float32,
+                                                  device=leaves[0].device)
+                for g, f in zip(grads, flags):
+                    sq = torch.sum(torch.square(g.float()))
+                    if f:
+                        sq_shard = sq_shard + sq
+                    else:
+                        sq_whole = sq_whole + sq
+                g_scale = clip_factor(torch.sqrt(parallel.all_reduce(sq_shard) + sq_whole))
+            params = [parallel.shard_rows(p) if f else p for p, f in zip(leaves, flags)]
+            opt_state = tx.fused_apply(grads, state.opt_state, params, g_scale=g_scale)
+            with torch.no_grad():
+                for p, shard, f in zip(leaves, params, flags):
+                    if f:
+                        parallel.all_gather_rows(shard, out=p)
+        else:
+            g_scale = reduce_sums(grad_sum, accum, n)
+            if want_hists(state):
+                scale = 1.0 / (accum * n)  # as JAX: float32 ranges times float32(1 / denominator)
+                hists = {name: (c, lo * scale, hi * scale) for name, (c, lo, hi) in
+                         grad_histograms([(path, g) for (path, _), g in zip(named, grad_sum)],
+                                         grad_hist_bins).items()}
+            opt_state = tx.fused_apply(grad_sum, state.opt_state, leaves, g_scale=g_scale)
         new_state = TrainState(state.model, opt_state, state.step + 1)
         if grad_hist_every:
+            if hists is None:
+                hists = _zeros_histograms(named, grad_hist_bins, leaves[0].device)
             return new_state, loss, hists
         return new_state, loss
 
