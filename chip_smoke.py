@@ -113,6 +113,30 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    backend, per-rank step ms, peaks, collective calls and bytes a step, and
    the save and read seconds.
 
+8. The one-chip Muon flagship (``split``):
+   ``configs/config_large_v3_best_muon_1chip.yaml`` as shipped (batch 6,
+   accum 8, bf16 accumulator, int8 Muon momentum, 8-bit auxiliary AdamW,
+   stochastic depth 0.1, deep SpecAugment, ``auto`` attention) at full
+   large-v3, its split-step keys resolved as ``finetune.main`` resolves them
+   (split, manual backward, precast). One accumulation each at accum 2 of
+   the automatic backward, the manual backward and the manual backward
+   with per-layer casts on the same weights, batch and draws: losses
+   bit-equal, per-layer gradient norms within 2%, the peaks (the shipped
+   manual path's difference asserted within 0.5 GB of PERF.md's
+   reckoning); one manual accumulation at batch 32 (its peak); then 1 + 2
+   optimizer steps at accum 8: ``accum_s`` and ``update_s``, the peak,
+   launches against ``blocks_run``, the schedule's lr, every leaf moved.
+9. Decoding (``decode``): large-v3 at random weights, 8 rows of synthetic
+   30 s audio, ``transcribe_batch`` greedy with the six-rung fallback, beam
+   5 (40 rows), beam 1, bf16, ``auto``: ``attn_fwd`` 32 a decode call and
+   no backward launch; the cached step's logits against the teacher-forced
+   ``forward_impl`` at every generated position (max |diff| <= 0.25; the
+   argmax where the margin exceeds it); beam 1 equal to greedy but for
+   float32 ties of the running score; the encoder's ms a pass, ms a token
+   beside its bound, tokens/s, peaks, seconds a rung; then the transcribe
+   CLI (``python -m whisper_finetune_torch.scripts.transcribe``) as a
+   subprocess on the driver leg's fp16 ``last_model.pt`` and a wav.
+
 ``--profile`` adds a ``torch.profiler`` window of two main-path steps: device
 time by kernel and group, and the device's busy share of the wall time.
 ``--kernels-only`` stops after phase 2 (build, checks and kernel times): the
@@ -128,6 +152,7 @@ Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -1280,6 +1305,7 @@ def driver_leg(first_slice_step_s: float) -> dict:
         + ", ".join(f"{x['file']} {x['gb']:.2f} GB in {x['s']:.1f} s" for x in saves)
         + f"; last_model.pt read in {read_s:.1f} s ({smi_line()})")
     del state, model, back
+    shutil.move(str(Path(run_dir) / "last_model.pt"), str(DRIVER_PT))  # the decode leg's CLI
     shutil.rmtree(tmp)
     torch.cuda.empty_cache()
     return rec
@@ -1771,6 +1797,444 @@ def ddp_leg(driver: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the split step with the manual backward (the one-chip flagship)
+# ---------------------------------------------------------------------------
+
+SPLIT_CONFIG = ROOT / "configs" / "config_large_v3_best_muon_1chip.yaml"
+# Peak of one accumulation (accum 2, batch 6) with the manual backward and
+# precast weights less the automatic backward's, and the manual backward with
+# per-layer casts less the automatic's (PERF.md §6, PR 8: the reckoning).
+SPLIT_PEAK_DIFF = {"manual": -0.90 * GB, "manual_per_layer": -3.90 * GB}
+SPLIT_PEAK_TOL = 0.5 * GB  # asserted for the shipped (precast) path
+SPLIT_BIG_BATCH = 32  # one accumulation at the flagship's batch 32 (ROADMAP item 13)
+
+
+def split_leg(dims=None, device="cuda") -> dict:
+    """``configs/config_large_v3_best_muon_1chip.yaml`` as shipped: batch 6,
+    bf16 accumulator, int8 Muon momentum, 8-bit auxiliary AdamW, stochastic
+    depth 0.1, deep SpecAugment, ``auto`` attention, with the training keys
+    resolved as ``finetune.main`` resolves them (``check_training_keys``,
+    ``resolve_step_keys``: split, manual backward, precast), random weights
+    from seed 0, synthetic audio and tokens.
+
+    (1) One accumulation each at accum 2 through the split step's
+    ``accumulate``, on the same weights, batch, draws and generator seed: the
+    automatic backward, the manual backward (precast, as shipped) and the
+    manual backward with per-layer casts. Asserted: losses bit-equal, every
+    layer's gradient norm within GRAD_NORM_TOL of the automatic path's, the
+    shipped manual path's peak below the automatic path's and the difference
+    within SPLIT_PEAK_TOL of the reckoning. (2) One accumulation at batch
+    SPLIT_BIG_BATCH, accum 1, manual: its peak. (3) Three optimizer steps (1
+    warm-up + 2 timed) at the shipped accum 8: ``accum_s`` / ``update_s``,
+    the peak, finite losses, every leaf moved, the schedule's lr at each
+    count, launches exact against ``blocks_run``."""
+    import torch
+    from whisper_finetune_torch import config as C
+    from whisper_finetune_torch.models import get_preset_dims, init_params
+    from whisper_finetune_torch.models import whisper as W
+    from whisper_finetune_torch.optim import get_optimizer, get_schedule
+    from whisper_finetune_torch.optim.quantized import BLOCK, QMoment
+    from whisper_finetune_torch.tools import first_slice as fs
+    from whisper_finetune_torch.train import TrainState, make_train_step
+
+    gc.collect()  # no earlier leg's garbage in this leg's peaks
+    torch.cuda.empty_cache()
+    cfg = C.load_config(SPLIT_CONFIG)
+    notes = C.check_training_keys(cfg)
+    keys, step_notes = C.resolve_step_keys(cfg, full_tree=True, zero_active=False)
+    notes += step_notes
+    if keys != {"split_update": True, "manual_backward": True, "manual_precast": True} or notes:
+        raise AssertionError(f"[split] the one-chip config resolves to {keys}, notes {notes}")
+    dims = dims or get_preset_dims(cfg["model"]["init_name"])
+    B, accum = int(cfg["dataset"]["batch_size"]), int(cfg["training"]["accum_grad_steps"])
+    model = init_params(dims, device=device, seed=0)
+    paths = [path for path, _ in model.leaves()]
+    leaves = [p for _, p in model.leaves()]
+    fcfg = C.build_forward_config(cfg, is_lora_run=False, device=device)
+    feat = C.build_featurize_config(cfg, dims.n_mels)
+    schedule = get_schedule(cfg["lr_scheduler"], TRAIN_STEPS)
+    tx, _ = get_optimizer(model.leaves(), cfg["optimizer"], schedule)
+    state = TrainState(model, tx.init(leaves), 0)
+    t = cfg["training"]
+
+    def make(**kw):
+        return make_train_step(dims, fcfg, tx, float(t["label_smoothing"]), feat_cfg=feat,
+                               max_grad_norm=float(t["max_grad_norm"]),
+                               accum_dtype=t["grad_accum_dtype"], device=device, **kw)
+
+    step = make(**keys)
+    log(f"  [split] {dims.n_audio_layer}+{dims.n_text_layer} layers, batch {B}, accum {accum}, "
+        f"attn {fcfg.enc_attn}/{fcfg.dec_attn}/{fcfg.cross_attn}, stochastic depth "
+        f"{fcfg.sd_encoder}, deep SpecAugment {fcfg.dsa_apply}, {tx.labels.count('muon')} Muon + "
+        f"{tx.labels.count('adamw')} AdamW leaves; keys {keys}")
+
+    # (1) manual against automatic, one accumulation each
+    batch2 = fs.synthetic_batch(dims, 2, B, device=device)
+    draws = W.draw_forward(torch.Generator(device=device).manual_seed(0), dims, device, 2)
+    compare = {}
+    kernels = fs.reset_counts()
+    for name, fn in (("automatic", make(split_update=True)), ("manual", step),
+                     ("manual_per_layer", make(split_update=True, manual_backward=True))):
+        gc.collect()
+        _sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        buf, loss = fn.accumulate(state, batch2, torch.Generator(device=device).manual_seed(1),
+                                  draws)
+        loss = loss.item()
+        _sync()
+        compare[name] = {"loss": loss, "s": time.perf_counter() - t0,
+                         "peak_bytes": torch.cuda.max_memory_allocated(), "base_bytes": base,
+                         "norms": fs.layer_grad_norms(paths, buf)}
+        del buf
+    compare_launches = {fn.__name__: fn.launches for fn in kernels}
+    blocks2 = (W.encoder_forward.blocks_run, W.decoder_forward.blocks_run)
+    ref = compare["automatic"]
+    for name in ("manual", "manual_per_layer"):
+        c = compare[name]
+        c["norm_rel_diff"] = fs.norms_rel_diff(c["norms"], ref["norms"])
+        c["peak_diff_bytes"] = c["peak_bytes"] - ref["peak_bytes"]
+        c["peak_diff_reckoned_bytes"] = SPLIT_PEAK_DIFF[name]
+        if c["loss"] != ref["loss"]:
+            raise AssertionError(f"[split] {name} loss {c['loss']!r} != automatic {ref['loss']!r}")
+        if not c["norm_rel_diff"] <= GRAD_NORM_TOL:
+            raise AssertionError(f"[split] {name} per-layer gradient norms {c['norm_rel_diff']:.3e} "
+                                 f"from the automatic path's")
+    man = compare["manual"]
+    if not (man["peak_diff_bytes"] < 0
+            and abs(man["peak_diff_bytes"] - SPLIT_PEAK_DIFF["manual"]) <= SPLIT_PEAK_TOL):
+        raise AssertionError(f"[split] manual peak - automatic peak {man['peak_diff_bytes'] / GB:.3f}"
+                             f" GB, reckoned {SPLIT_PEAK_DIFF['manual'] / GB:.3f}")
+    # each kept block: one attention site (encoder self or cross) through the
+    # kernels, forward and recompute (or replay) plus backward
+    expect = {"attn_fwd": 2 * (blocks2[0] + blocks2[1]), "attn_bwd": blocks2[0] + blocks2[1],
+              "fused_adamw8_leaf": 0}
+    if compare_launches != expect:
+        raise AssertionError(f"[split] accumulations' launches {compare_launches} != {expect}")
+    for name, c in compare.items():
+        log(f"  [split] accum 2, {name}: loss {c['loss']:.6f}, peak "
+            f"{c['peak_bytes'] / GB:.3f} GB over {c['base_bytes'] / GB:.3f} resident, "
+            f"{c['s']:.2f} s" + (f"; peak - automatic {c['peak_diff_bytes'] / GB:+.3f} GB "
+                                 f"(reckoned {c['peak_diff_reckoned_bytes'] / GB:+.2f}), layer "
+                                 f"norms within {c['norm_rel_diff']:.2e}" if name != "automatic"
+                                 else ""))
+    del batch2
+
+    # (2) one accumulation at the flagship's batch 32
+    big = fs.synthetic_batch(dims, 1, SPLIT_BIG_BATCH, device=device)
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    buf, loss = step.accumulate(state, big, torch.Generator(device=device).manual_seed(2))
+    loss = loss.item()
+    _sync()
+    big_rec = {"batch": SPLIT_BIG_BATCH, "loss": loss, "s": time.perf_counter() - t0,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+    del buf, big
+    log(f"  [split] one accumulation at batch {SPLIT_BIG_BATCH} (manual, precast): peak "
+        f"{big_rec['peak_bytes'] / GB:.3f} GB, {big_rec['s']:.2f} s, loss {loss:.4f}")
+    torch.cuda.empty_cache()
+
+    # (3) three optimizer steps at the shipped accumulation
+    batch = fs.synthetic_batch(dims, accum, B, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    before = [p.detach()[(0,) * (p.dim() - 1)][:8].clone() for p in leaves]
+    aux_fused = sum(isinstance(mu, QMoment) and p.numel() % BLOCK == 0
+                    for p, mu in zip(tx._pick("adamw", leaves), state.opt_state.adamw.mu))
+    warmup, timed = 1, 2
+    kernels = fs.reset_counts()
+    losses, times, timings, lrs = [], [], [], []
+    for i in range(warmup + timed):
+        if i == warmup:
+            torch.cuda.reset_peak_memory_stats()
+        lrs.append((tx.muon.lr(state.opt_state.count), tx.adamw.lr(state.opt_state.count)))
+        _sync()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch, gen)
+        loss = loss.item()
+        _sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        timings.append(dict(step.last_timing))
+        log(f"  [split] step {i}: loss {loss:.4f}, {times[-1] * 1e3:.1f} ms (accum "
+            f"{timings[-1]['accum_s'] * 1e3:.1f}, update {timings[-1]['update_s'] * 1e3:.1f}), "
+            f"lr {lrs[-1][0]:.3e}")
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    enc_blocks, dec_blocks = W.encoder_forward.blocks_run, W.decoder_forward.blocks_run
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = warmup + timed
+    expect = {"attn_fwd": 2 * (enc_blocks + dec_blocks), "attn_bwd": enc_blocks + dec_blocks,
+              "fused_adamw8_leaf": aux_fused * n_steps}
+    if launches != expect or not aux_fused:
+        raise AssertionError(f"[split] launch counts {launches} != expected {expect} "
+                             f"(blocks run: encoder {enc_blocks}, decoder {dec_blocks})")
+    if not all(math.isfinite(x) for x in losses) or abs(losses[0] - math.log(dims.n_vocab)) > 0.5:
+        raise AssertionError(f"[split] losses {losses}")
+    changed = sum(not torch.equal(b, p.detach()[(0,) * (p.dim() - 1)][:8])
+                  for b, p in zip(before, leaves))
+    if changed != len(leaves) or state.step != n_steps or state.opt_state.count != n_steps:
+        raise AssertionError(f"[split] {changed} of {len(leaves)} leaves moved, step "
+                             f"{state.step}, count {state.opt_state.count}")
+    warm = float(cfg["lr_scheduler"]["warmup_steps"])
+    for c, (lr_m, lr_a) in enumerate(lrs):
+        want_m = float(cfg["optimizer"]["muon_params"]["lr"]) * c / warm
+        want_a = float(cfg["optimizer"]["params"]["lr"]) * c / warm
+        if abs(lr_m - want_m) > 1e-6 * max(want_m, 1e-12) or abs(lr_a - want_a) > 1e-6 * max(want_a, 1e-12):
+            raise AssertionError(f"[split] lr at count {c}: {lr_m}, {lr_a} != {want_m}, {want_a}")
+    rec = {
+        "config": str(SPLIT_CONFIG.relative_to(ROOT)), "keys": keys, "batch": B, "accum": accum,
+        "layers": [dims.n_audio_layer, dims.n_text_layer],
+        "compare": {k: {kk: vv for kk, vv in v.items() if kk != "norms"}
+                    for k, v in compare.items()},
+        "compare_launches": compare_launches, "big_batch": big_rec,
+        "losses": losses, "step_s_all": times, "step_s_median": statistics.median(times[warmup:]),
+        "timings": timings, "lr": lrs, "peak_mem_bytes": peak, "launches": launches,
+        "blocks_run": {"encoder": enc_blocks, "decoder": dec_blocks}, "aux_fused": aux_fused,
+        "audio_hours_per_s": accum * B * 30 / 3600 / statistics.median(times[warmup:]),
+    }
+    log(f"  [split] median step {rec['step_s_median'] * 1e3:.1f} ms "
+        f"({rec['audio_hours_per_s']:.4f} audio-h/s), peak {peak / GB:.3f} GB, blocks run "
+        f"{enc_blocks}+{dec_blocks}, launches {launches} ({smi_line()})")
+    del state, step, model, leaves, batch, before, tx
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: KV-cached decoding and the transcribe CLI
+# ---------------------------------------------------------------------------
+
+DECODE_ROWS, DECODE_MAX_LEN, DECODE_BEAM = 8, 224, 5
+DECODE_LOGIT_TOL = 0.25  # cached step against the teacher-forced bf16 forward, max |logit diff|
+DRIVER_PT = SCRATCH / "driver_last_model.pt"  # the driver leg's last_model.pt, for the CLI
+
+
+def decode_token_bound(dims, rows: int, max_len: int, beam: bool = False):
+    """(ms, "bytes"/"operations") of one cached token step at ``rows`` rows:
+    the decoder's block weights in bf16 (vectors float32), the float32 tied
+    head, every layer's cross K/V and the whole self-attention window read
+    once; with ``beam`` the caches' reorder (read and write) too; operations:
+    2 per weight element a row."""
+    L, d, S, V = dims.n_text_layer, dims.n_text_state, dims.n_audio_ctx, dims.n_vocab
+    mats = L * 16 * d * d  # q, k, v, o twice; fc1, fc2
+    vecs = L * (13 * d + 4 * d)  # biases and layer-norm gains
+    cross = 2 * L * rows * S * d * 2
+    window = 2 * L * rows * max_len * d * 2
+    n_bytes = mats * 2 + vecs * 4 + V * d * 4 + cross + window + (2 * window if beam else 0)
+    flops = 2 * rows * (mats + V * d) + 2 * 2 * rows * L * (S + max_len) * d
+    return bound_ms(n_bytes, flops)
+
+
+def decode_leg(cli_checkpoint: Path, dims=None, device="cuda") -> dict:
+    """large-v3 at random weights (seed 0), 8 rows of synthetic 30 s audio
+    (numpy seed 0), ``max_len`` 224, language ``de``, ``without_timestamps``,
+    bf16, ``attn_impl: auto``, through ``transcribe_batch``: greedy with the
+    shipped six-rung fallback (random weights fail the log-prob threshold,
+    so every rung runs), then beam 5 at temperature 0 (40 rows), then beam 1.
+    Counters zeroed just before and read just after: ``attn_fwd`` 32 a
+    decode call (its encoder pass), no ``attn_bwd``. Then, outside the count:
+    the first rung's tokens teacher-forced through ``forward_impl`` against
+    the cached step's logits at every generated position (max |diff| <=
+    DECODE_LOGIT_TOL; where the full forward's filtered top-2 margin exceeds
+    it, its argmax is the generated token); beam 1's tokens equal greedy's up
+    to a position where the beam's running score merged greedy's top two
+    log-probs (a tie in float32, which the assertion checks). Times: the
+    encoder pass, each call, ms a token beside its bound, peaks. Last, the
+    transcribe CLI as a subprocess on ``cli_checkpoint`` (the driver leg's
+    fp16 ``last_model.pt``) and a 16 kHz wav: exit 0, one line."""
+    import os
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from whisper_finetune_torch.models import decoding as D
+    from whisper_finetune_torch.models import get_preset_dims, init_params
+    from whisper_finetune_torch.models.whisper import ForwardConfig, encoder_forward, forward_impl
+    from whisper_finetune_torch.ops.attention import resolve_auto_impls
+    from whisper_finetune_torch.ops.spec_augment import FeaturizeConfig, featurize_impl
+    from whisper_finetune_torch.tokenizer import get_tokenizer
+    from whisper_finetune_torch.tools import first_slice as fs
+
+    gc.collect()  # no earlier leg's garbage in this leg's peaks
+    torch.cuda.empty_cache()
+    dims = dims or get_preset_dims("large-v3")
+    N, max_len = DECODE_ROWS, min(DECODE_MAX_LEN, dims.n_text_ctx)
+    model = init_params(dims, device=device, seed=0)
+    params = model.params()
+    tok = get_tokenizer(language="de", task="transcribe")
+    audio = (np.random.default_rng(0).standard_normal((N, 480000)) * 0.05).astype(np.float32)
+    fcfg = ForwardConfig(compute_dtype="bfloat16", **resolve_auto_impls(device))
+    eval_fcfg = D._eval_fcfg(fcfg)
+    filters = D.default_filters(tok)
+    with torch.no_grad():
+        mel = featurize_impl(torch.from_numpy(audio).to(device),
+                             torch.full((N,), 3000, dtype=torch.int32, device=device), None,
+                             FeaturizeConfig(n_mels=dims.n_mels), train=False)
+        enc_ms = cuda_time_ms(lambda: encoder_forward(params, mel, dims, eval_fcfg), iters=2,
+                              repeats=3)
+    log(f"  [decode] encoder pass at {N} rows: {enc_ms:.2f} ms")
+
+    calls = []
+    originals = {name: getattr(D, name) for name in ("greedy_decode", "beam_decode")}
+
+    def timed(name):
+        def run(p, mel_r, init_r, *args, **kw):
+            _sync()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = originals[name](p, mel_r, init_r, *args, **kw)
+            _sync()
+            calls.append({"fn": name, "rows": int(mel_r.shape[0]),
+                          "beam": kw.get("beam_size", 1) if name == "beam_decode" else None,
+                          "temperature": float(kw.get("temperature", 0.0)),
+                          "s": time.perf_counter() - t0,
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "tokens": out[0], "avg_logprob": out[1].cpu(), "mel": mel_r,
+                          "init": init_r})
+            return out
+        return run
+
+    kernels = fs.reset_counts()
+    try:
+        for name in originals:
+            setattr(D, name, timed(name))
+        texts = D.transcribe_batch(params, dims, audio, tok, fcfg=fcfg, language="de",
+                                   max_len=max_len)
+        beam_texts = D.transcribe_batch(params, dims, audio, tok, fcfg=fcfg, language="de",
+                                        max_len=max_len, beam_size=DECODE_BEAM,
+                                        temperatures=(0.0,))
+        init = calls[0]["init"]
+        D.beam_decode(params, mel, init, tok.eot, dims, fcfg, max_len=max_len, beam_size=1,
+                      filters=filters)
+    finally:
+        for name, fn in originals.items():
+            setattr(D, name, fn)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    passes = len(calls)
+    expect = {"attn_fwd": dims.n_audio_layer * passes, "attn_bwd": 0, "fused_adamw8_leaf": 0}
+    if launches != expect:
+        raise AssertionError(f"[decode] launches {launches} != {expect} ({passes} encoder passes)")
+    rungs = calls[:-2]
+    if [c["temperature"] for c in rungs] != [0.0, 0.2, 0.4, 0.6, 0.8, 1.0] or \
+            any(c["rows"] != N for c in rungs) or len(texts) != N:
+        raise AssertionError(f"[decode] rungs {[(c['temperature'], c['rows']) for c in rungs]}")
+    beam, beam1 = calls[-2], calls[-1]
+    if beam["fn"] != "beam_decode" or beam["rows"] != N or len(beam_texts) != N:
+        raise AssertionError("[decode] the beam call is not the expected one")
+
+    # The cached step against the teacher-forced forward, at every position
+    # that predicted a generated token.
+    greedy = calls[0]["tokens"]
+    T0 = init.shape[1]
+    seq = torch.cat([init, greedy], 1)
+    with torch.no_grad():
+        dec = D._encode(params, mel, dims, fcfg, max_len)
+        cached = torch.stack([dec.step(seq[:, i], i) for i in range(max_len - 1)], 1)
+        del dec
+        full = forward_impl(params, mel, seq[:, :-1], dims, eval_fcfg)
+    cached, full = cached[:, T0 - 1:], full[:, T0 - 1:]  # (N, n_gen, V)
+    diff = (cached - full).abs()
+    logit_err = diff.max().item()
+    logit_rms = diff.square().mean().sqrt().item()
+    del diff
+    eot = tok.eot
+    zeros = torch.zeros((N,), dtype=torch.long, device=device)
+    checked = agree = 0
+    lp_all = []
+    for j in range(greedy.shape[1]):
+        full_j = filters.apply(full[:, j], zeros, zeros, zeros, j)
+        top2 = full_j.topk(2, dim=-1).values
+        live = (greedy[:, :j] != eot).all(1) if j else torch.ones_like(zeros, dtype=torch.bool)
+        sure = live & (top2[:, 0] - top2[:, 1] > DECODE_LOGIT_TOL)
+        checked += int(sure.sum())
+        agree += int((sure & (full_j.argmax(-1) == greedy[:, j])).sum())
+        lp_all.append(torch.log_softmax(filters.apply(cached[:, j], zeros, zeros, zeros, j), -1))
+    if not logit_err <= DECODE_LOGIT_TOL or agree != checked or checked == 0:
+        raise AssertionError(f"[decode] cached step against the teacher-forced forward: max "
+                             f"|diff| {logit_err:.4f} (tolerance {DECODE_LOGIT_TOL}); argmax "
+                             f"agrees at {agree} of {checked} positions past the margin")
+    # Beam 1 against greedy: equal, or diverging first where the running
+    # score's float32 sum cannot tell greedy's two best continuations apart.
+    b1 = beam1["tokens"]
+    equal_rows, tie_rows = 0, []
+    for r in range(N):
+        d = (b1[r] != greedy[r]).nonzero()
+        if len(d) == 0:
+            equal_rows += 1
+            continue
+        d = int(d[0])
+        lp = [x[r] for x in lp_all]
+        g, b = lp[d][greedy[r, d]], lp[d][b1[r, d]]
+        score = lp[0][greedy[r, 0]]  # the beam's running sum, in its order
+        for j in range(1, d):
+            score = score + lp[j][greedy[r, j]]
+        tie = bool(g == b) if d == 0 else bool(score + g == score + b)
+        if not tie:
+            raise AssertionError(f"[decode] beam 1 leaves greedy at row {r}, token {d}: log-probs "
+                                 f"{g.item()!r} / {b.item()!r}, score {score.item()!r}")
+        tie_rows.append((r, d))
+    del cached, full, lp_all
+
+    def per_token(c, rows):
+        ms = (c["s"] * 1e3 - enc_ms) / max_len
+        bound, by = decode_token_bound(dims, rows, max_len, beam=c["fn"] == "beam_decode")
+        return {"ms": ms, "bound_ms": bound, "bound_by": by, "gap": ms / bound,
+                "tokens_per_s": rows * (max_len - T0) / c["s"]}
+
+    g_tok, b_tok = per_token(rungs[0], N), per_token(beam, N * DECODE_BEAM)
+    rec = {
+        "rows": N, "max_len": max_len, "beam": DECODE_BEAM, "encoder_ms": enc_ms,
+        "greedy_per_token": g_tok, "beam_per_token": b_tok,
+        "rung_s": [c["s"] for c in rungs], "beam_s": beam["s"], "beam1_s": beam1["s"],
+        "greedy_peak_bytes": max(c["peak_bytes"] for c in rungs),
+        "beam_peak_bytes": beam["peak_bytes"],
+        "cross_cache_bytes": {"greedy": 2 * dims.n_text_layer * N * dims.n_audio_ctx
+                              * dims.n_text_state * 2,
+                              "beam": 2 * dims.n_text_layer * N * DECODE_BEAM * dims.n_audio_ctx
+                              * dims.n_text_state * 2},
+        "logit_max_abs_diff": logit_err, "logit_rms_diff": logit_rms,
+        "argmax_checked": checked, "beam1_equal_rows": equal_rows, "beam1_tie_rows": tie_rows,
+        "avg_logprob_rung0": calls[0]["avg_logprob"].tolist(), "launches": launches,
+        "encoder_passes": passes, "texts": texts, "beam_texts": beam_texts,
+    }
+    log(f"  [decode] greedy, 6 rungs of {N} rows: {[round(s, 2) for s in rec['rung_s']]} s; "
+        f"{g_tok['ms']:.2f} ms a token (bound {g_tok['bound_ms']:.3f} by {g_tok['bound_by']}, "
+        f"{g_tok['gap']:.1f}x), {g_tok['tokens_per_s']:.0f} tokens/s, peak "
+        f"{rec['greedy_peak_bytes'] / GB:.3f} GB")
+    log(f"  [decode] beam {DECODE_BEAM} ({N * DECODE_BEAM} rows): {beam['s']:.2f} s, "
+        f"{b_tok['ms']:.2f} ms a token (bound {b_tok['bound_ms']:.3f}, {b_tok['gap']:.1f}x), "
+        f"{b_tok['tokens_per_s']:.0f} tokens/s, peak {rec['beam_peak_bytes'] / GB:.3f} GB; "
+        f"beam 1 {beam1['s']:.2f} s")
+    log(f"  [decode] cached step against the teacher-forced forward: max |diff| {logit_err:.4f}, "
+        f"rms {logit_rms:.5f}; argmax agrees at all {checked} positions past the margin; beam 1 "
+        f"= greedy on {equal_rows} of {N} rows, float32 ties at {tie_rows}; launches {launches}")
+    del model, params, calls, rungs, beam, beam1, mel
+    torch.cuda.empty_cache()
+
+    # The CLI on the driver leg's checkpoint, as a user runs it.
+    wav = SCRATCH / "decode_cli.wav"
+    wavfile.write(str(wav), 16000, (np.random.default_rng(0).standard_normal(16000 * 5) * 0.05
+                                    ).astype(np.float32))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "whisper_finetune_torch.scripts.transcribe",
+                          "--checkpoint", str(cli_checkpoint), str(wav)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=900,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    cli_s = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or len(lines) != 1 or not lines[0].startswith(f"{wav}\t"):
+        raise AssertionError(f"[decode] transcribe CLI exit {out.returncode}, stdout "
+                             f"{out.stdout[-2000:]!r}, stderr {out.stderr[-4000:]}")
+    rec["cli"] = {"s": cli_s, "line": lines[0]}
+    log(f"  [decode] transcribe CLI on the driver leg's last_model.pt: exit 0 in {cli_s:.1f} s: "
+        f"{lines[0][:120]!r} ({smi_line()})")
+    wav.unlink()
+    return rec
+
+
 def profile_steps(step, state, batch, gen, n_steps: int = 2) -> dict:
     """Device time by kernel over ``n_steps`` main-path steps
     (``torch.profiler``), grouped, with the device's busy share of the
@@ -1992,6 +2456,30 @@ def main() -> int:
                       "save_s": ddp["save_s"], "read_s": ddp["read_s"],
                       "train_state_gb": ddp["file_gb"], "launches": ddp["launches"],
                       "card": smi_line()}), flush=True)
+    log("the one-chip Muon flagship: split step, manual backward "
+        "(configs/config_large_v3_best_muon_1chip.yaml):")
+    split = split_leg()
+    print(json.dumps({"leg": "split", "step_ms": [x * 1e3 for x in split["step_s_all"]],
+                      "accum_ms": [x["accum_s"] * 1e3 for x in split["timings"]],
+                      "update_ms": [x["update_s"] * 1e3 for x in split["timings"]],
+                      "peak_gb": split["peak_mem_bytes"] / GB,
+                      "accum2_peak_gb": {k: v["peak_bytes"] / GB
+                                         for k, v in split["compare"].items()},
+                      "batch32_peak_gb": split["big_batch"]["peak_bytes"] / GB,
+                      "launches": split["launches"], "card": smi_line()}), flush=True)
+    log("KV-cached decoding and the transcribe CLI (large-v3):")
+    decode = decode_leg(DRIVER_PT)
+    DRIVER_PT.unlink()
+    print(json.dumps({"leg": "decode", "encoder_ms": decode["encoder_ms"],
+                      "greedy_ms_per_token": decode["greedy_per_token"]["ms"],
+                      "beam_ms_per_token": decode["beam_per_token"]["ms"],
+                      "bound_ms_per_token": [decode["greedy_per_token"]["bound_ms"],
+                                             decode["beam_per_token"]["bound_ms"]],
+                      "rung_s": decode["rung_s"], "beam_s": decode["beam_s"],
+                      "peak_gb": [decode["greedy_peak_bytes"] / GB, decode["beam_peak_bytes"] / GB],
+                      "logit_max_abs_diff": decode["logit_max_abs_diff"],
+                      "launches": decode["launches"], "cli_s": decode["cli"]["s"],
+                      "card": smi_line()}), flush=True)
     new_legs = {**{f"remat {k}": v for k, v in remat.items()}, "lora": lora, "surgery": surgery}
     for name, leg in new_legs.items():
         print(json.dumps({"leg": name, "step_ms_median": leg["step_s_median"] * 1e3,
@@ -2004,7 +2492,8 @@ def main() -> int:
     per_step = main_rec["launches_per_step"]
     by_leg = {"splash_adamw8": main_rec["launches"], **{k: v["launches"] for k, v in legs.items()},
               **{k: v["launches"] for k, v in new_legs.items()}, "driver": driver["launches"],
-              **ddp["launches"]}
+              **ddp["launches"], "split accum 2 x 3": split["compare_launches"],
+              "split": split["launches"], "decode": decode["launches"]}
     kernels = attention_entries(enc, cross, dec_self, attn_err, repeatable, fwd_res, by_leg,
                                 per_step)
     kernels.append({
@@ -2026,7 +2515,7 @@ def main() -> int:
                "decoder_self_routes": dec_route}, "adamw8_timing": adam_t,
               "adamw8_check": adam, "attn_bwd_repeatable": repeatable,
               "main_path": main_rec, "flagship_legs": legs, "model_layer_legs": new_legs,
-              "driver_leg": driver, "ddp_leg": ddp,
+              "driver_leg": driver, "ddp_leg": ddp, "split_leg": split, "decode_leg": decode,
               "seconds": time.perf_counter() - T_START}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

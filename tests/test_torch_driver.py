@@ -1,7 +1,7 @@
 """The port's training driver (``whisper_finetune_torch/scripts/finetune.py``)
 and what it stands on against the JAX package's: ``validate_config`` on
-every shipped YAML, the refusals of the training keys the port cannot honour
-yet, the step math and seeding, the runtime facade, the LR telemetry, and a
+every shipped YAML, the resolution of the split-step training keys, the
+step math and seeding, the runtime facade, the LR telemetry, and a
 ``main()`` run of a trimmed ``configs/DEBUG.yaml`` on the CPU beside the JAX
 driver's run on the same data and ``.pt``: the same ``metrics.jsonl`` keys
 (pinned in ``tests/driver_metrics_keys.json``, which ``chip_smoke.py`` holds
@@ -63,39 +63,66 @@ def test_validate_config_warns_on_unknown_keys():
         tc.validate_config({"model": {"init_name": "tiny", "lorra": 1}})
 
 
-@pytest.mark.parametrize("key,value,item", [
-    ("split_optimizer_step", True, 13), ("manual_backward", True, 13),
-    ("manual_precast_weights", True, 13), ("manual_precast_weights", "auto", 13),
-])
-def test_unported_training_keys_raise_naming_their_item(key, value, item):
-    cfg = tc.validate_config({"model": {"init_name": "tiny"}, "training": {key: value}})
-    with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
-        tc.check_training_keys(cfg)
-    from whisper_finetune_torch.scripts import finetune
+# (training keys, optimizer.muon, full tree, ZeRO at a world above 1) ->
+# (split_update, manual_backward, manual_precast), or JAX's ValueError.
+_MANUAL_ERR = "manual_backward=true requires split_optimizer_step"
+STEP_KEY_CASES = [
+    ({}, False, True, False, (False, False, False)),
+    ({}, True, True, False, (True, True, False)),  # auto: split where Muon is on
+    ({}, True, False, False, (True, False, False)),  # LoRA / train_only_*: automatic
+    ({"split_optimizer_step": True}, False, True, True, (False, False, False)),  # ZeRO: inert
+    ({"split_optimizer_step": True, "manual_backward": False,
+      "manual_precast_weights": "auto"}, False, True, False, (True, False, True)),
+    ({"manual_backward": True}, False, True, False, _MANUAL_ERR),  # no split
+    ({"manual_backward": True, "split_optimizer_step": True}, True, False, False, _MANUAL_ERR),
+    ({"manual_backward": True}, True, True, True, _MANUAL_ERR),  # ZeRO turned the split off
+]
 
-    with pytest.raises(ValueError, match=f"ROADMAP item {item}"):
-        finetune.main({"model": {"init_name": "tiny"}, "training": {key: value}}, device="cpu")
+
+@pytest.mark.parametrize("training,muon,full_tree,zero,want", STEP_KEY_CASES)
+def test_step_keys_resolve_as_the_jax_driver(training, muon, full_tree, zero, want):
+    """``split_optimizer_step`` / ``manual_backward`` / ``manual_precast_weights``
+    resolve as ``whisper_finetune_tpu/scripts/finetune.py`` resolves them:
+    ``auto`` splits exactly when Muon is on, ZeRO at a world above 1 turns
+    the split off with JAX's note, ``manual_backward: auto`` is split on the
+    full tree, an explicit ``true`` that cannot be honoured raises JAX's
+    ``ValueError``."""
+    cfg = tc.validate_config({"model": {"init_name": "tiny"}, "training": training,
+                              "optimizer": {"muon": muon}})
+    assert tc.check_training_keys(cfg) == []  # nothing is refused any more
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            tc.resolve_step_keys(cfg, full_tree, zero)
+        return
+    got, notes = tc.resolve_step_keys(cfg, full_tree, zero)
+    assert (got["split_update"], got["manual_backward"], got["manual_precast"]) == want
+    assert bool(notes) == (zero and training.get("split_optimizer_step") is True)
+    if notes:
+        assert "inert under zero_shard_optimizer" in notes[0]
 
 
-def test_served_training_keys_and_shipped_refusals():
-    """The shipped multi-card configs pass (ZeRO-1 and the DDP key are
-    served since data parallelism was ported); the one-chip flagship's
-    split program and manual backward are still item 13."""
-    base = {"model": {"init_name": "tiny"}}
-    assert tc.check_training_keys(tc.validate_config(base)) == []
-    muon = tc.validate_config({**base, "optimizer": {"muon": True},
-                               "training": {"manual_backward": "auto", "compiler_options": {
-                                   "xla_tpu_scoped_vmem_limit_kib": 32768}}})
-    notes = tc.check_training_keys(muon)
-    assert "fused single-program step" in notes[0] and "ignored" in notes[1]
-    for name in ("config_large_v3_best_muon_v5e8_zero.yaml", "config_large_v3_best_muon_ddp4.yaml",
-                 "DEBUG_DDP.yaml"):
-        tc.check_training_keys(tc.load_config(ROOT / "configs" / name))
-    assert tc.load_config(ROOT / "configs" / "config_large_v3_best_muon_v5e8_zero.yaml"
-                          )["training"]["zero_shard_optimizer"]
-    with pytest.raises(ValueError, match="item 13"):
-        tc.check_training_keys(tc.load_config(ROOT / "configs" /
-                                              "config_large_v3_best_muon_1chip.yaml"))
+@pytest.mark.parametrize("name", CONFIGS)
+def test_shipped_configs_pass_and_resolve(name):
+    """No shipped config is refused; the one-chip flagship resolves to the
+    split step, the manual backward and precast weights, as in JAX; the
+    flagship (auto) to split and manual; only XLA's compiler options are
+    noted."""
+    cfg = tc.load_config(ROOT / "configs" / name)
+    notes = tc.check_training_keys(cfg)
+    assert all("compiler_options" in n for n in notes)
+    lora = bool(cfg["model"].get("lora"))
+    full = not (lora or cfg["training"]["train_only_encoder"]
+                or cfg["training"]["train_only_decoder"])
+    got, notes = tc.resolve_step_keys(cfg, full,
+                                      bool(cfg["training"].get("zero_shard_optimizer")))
+    if name == "config_large_v3_best_muon_1chip.yaml":
+        assert got == {"split_update": True, "manual_backward": True, "manual_precast": True}
+        assert notes == []
+    if name == "config_large_v3_best_muon.yaml":
+        assert got["split_update"] and got["manual_backward"] and not got["manual_precast"]
+    xla = tc.validate_config({"model": {"init_name": "tiny"}, "training": {
+        "compiler_options": {"xla_tpu_scoped_vmem_limit_kib": 32768}}})
+    assert "ignored" in tc.check_training_keys(xla)[0]
 
 
 def test_step_math_and_seeding_match_jax():
@@ -318,3 +345,38 @@ def _optimizer(state):
     from whisper_finetune_torch.optim import get_optimizer
 
     return get_optimizer(state.model.leaves(), {"type": "adamw", "params": {"lr": 1e-4}})[0]
+
+
+def test_one_chip_flagship_keys_train(runs, monkeypatch):
+    """``config_large_v3_best_muon_1chip.yaml``'s optimizer and training keys
+    (split step, manual backward, precast weights, bf16 accumulator, int8
+    Muon momentum, 8-bit auxiliary AdamW, stochastic depth, deep
+    SpecAugment) through ``main()`` on the CPU on the tests' small
+    checkpoint: two optimizer steps through the split step and the manual
+    backward, of 2 microbatches each (the YAML's 8 would only repeat them)."""
+    from whisper_finetune_torch.scripts import finetune
+
+    flagship = tc.load_config(ROOT / "configs" / "config_large_v3_best_muon_1chip.yaml")
+    config = _config(runs["ds"], runs["ckpt"], str(runs["tmp"] / "one_chip"))
+    config["dataset"]["val_datasets"] = []
+    config["optimizer"] = flagship["optimizer"]
+    for key in ("split_optimizer_step", "manual_backward", "manual_precast_weights",
+                "grad_accum_dtype", "stochastic_depth", "label_smoothing", "max_grad_norm"):
+        config["training"][key] = flagship["training"][key]
+    config["augmentation"] = {"deep_spec_augment": flagship["augmentation"]["deep_spec_augment"]}
+    config["training"].update(accum_grad_steps=2, epochs=0.25)  # 4 of the 16 samples
+    built = []
+    make = finetune.make_train_step
+
+    def recording(*args, **kwargs):
+        built.append((kwargs, make(*args, **kwargs)))
+        return built[-1][1]
+
+    monkeypatch.setattr(finetune, "make_train_step", recording)
+    state, run_dir = finetune.main(config, device="cpu")
+    ((kwargs, step),) = built
+    assert kwargs["split_update"] and kwargs["manual_backward"] and kwargs["manual_precast"]
+    assert step.last_timing is not None and step._grad_buf is not None
+    assert state.step == state.opt_state.count == 2
+    losses = [r["Train loss"] for r in _records(run_dir) if "Train loss" in r]
+    assert len(losses) == 2 and all(np.isfinite(losses))

@@ -51,7 +51,9 @@ def test_port_imports_no_jax():
         "whisper_finetune_torch.data.hf_utils, whisper_finetune_torch.eval, "
         "whisper_finetune_torch.eval.evaluator, whisper_finetune_torch.scripts.finetune, "
         "whisper_finetune_torch.parallel, whisper_finetune_torch.train.zero, "
-        "whisper_finetune_torch.train.state_io, whisper_finetune_torch.scripts.evaluate\n"
+        "whisper_finetune_torch.train.state_io, whisper_finetune_torch.scripts.evaluate, "
+        "whisper_finetune_torch.train.manual_grad, whisper_finetune_torch.models.decoding, "
+        "whisper_finetune_torch.scripts.transcribe\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'whisper_finetune_tpu')]\n"
         "print(bad)\n"

@@ -151,7 +151,8 @@ def steps_case(spec: dict) -> dict:
                                tx, spec.get("smoothing", 0.0),
                                max_grad_norm=spec.get("max_grad_norm"),
                                accum_dtype=spec.get("accum_dtype"),
-                               grad_hist_every=hist_every, zero_shard=zero, device="cpu")
+                               grad_hist_every=hist_every, zero_shard=zero,
+                               split_update=bool(spec.get("split")), device="cpu")
 
     state, tx = build()
     if spec.get("resume_from"):
@@ -189,6 +190,7 @@ def steps_case(spec: dict) -> dict:
         "count": state.opt_state.count,
         "comm": parallel.counts(),
         "labels": getattr(tx, "labels", None),
+        "split_step": hasattr(step, "last_timing"),
     }
 
 

@@ -7,8 +7,9 @@ functions and the optimizer factory read (``training``, ``augmentation``,
 ``optimizer``, ``lr_scheduler``, ``model``) and checks their values;
 :func:`validate_config` is the training script's whole normalisation (the
 dataset section too, unknown keys warned about), and
-:func:`check_training_keys` refuses the training keys this port cannot
-honour yet, naming the ROADMAP item that brings them.
+:func:`check_training_keys` notes the keys served differently, and
+:func:`resolve_step_keys` turns the split-step keys into the step's flags
+as the JAX driver does.
 :func:`build_forward_config` and :func:`build_featurize_config` are the
 ones of ``scripts/finetune.py``, and :func:`build_model` is that script's
 model section (base checkpoint, layer surgery, LoRA, frozen leaves).
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import copy
 import warnings
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -274,40 +275,50 @@ def validate_config(config: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-# Training keys the port does not honour yet when set (truthy), with the
-# ROADMAP item that brings them; ``auto`` is served for two of them.
-# ``ddp_find_unused_parameters`` is accepted and ignored, as in the JAX
-# package: the step reduces every gradient itself and wraps no DDP module.
-_AUTO_SERVED = ("split_optimizer_step", "manual_backward")
-_UNPORTED_KEYS = (
-    ("split_optimizer_step", 13),
-    ("manual_backward", 13),
-    ("manual_precast_weights", 13),
-)
-
-
 def check_training_keys(config: Dict[str, Any]) -> List[str]:
-    """Raise ``ValueError`` naming its ROADMAP item for a training key set to
-    a value the port cannot honour yet (a split optimizer program, the
-    manual backward, manual precast weights). Returns the notes to log once
-    for the keys it serves differently: ``auto`` split and manual backward
-    run the one fused step (the same update), and XLA's
-    ``compiler_options`` mean nothing here."""
+    """The notes to log once for training keys the port serves differently:
+    XLA's ``compiler_options`` mean nothing here. Every training key is
+    honoured (``ddp_find_unused_parameters`` is accepted and ignored, as in
+    the JAX package: the step reduces every gradient itself and wraps no DDP
+    module)."""
     tr = config["training"]
-    for key, item in _UNPORTED_KEYS:
-        if tr[key] and not (key in _AUTO_SERVED and tr[key] == "auto"):
-            raise ValueError(
-                f"training.{key}={tr[key]!r} is not supported by the PyTorch port yet "
-                f"(ROADMAP item {item}); the port runs the fused single-program step")
     notes = []
-    if tr["split_optimizer_step"] == "auto" and config["optimizer"].get("muon"):
-        notes.append("split_optimizer_step: auto runs the fused single-program step on the "
-                     "card (the same update; the split program is JAX's memory tactic for "
-                     "16 GB chips, ROADMAP item 13)")
     if tr["compiler_options"]:
         notes.append(f"WARNING: training.compiler_options {sorted(tr['compiler_options'])} "
                      "are XLA compile options; ignored by the PyTorch port")
     return notes
+
+
+def resolve_step_keys(config: Dict[str, Any], full_tree: bool, zero_active: bool
+                      ) -> Tuple[Dict[str, bool], List[str]]:
+    """``make_train_step``'s ``split_update``, ``manual_backward`` and
+    ``manual_precast`` from the training keys, as the JAX driver resolves
+    them: ``split_optimizer_step: auto`` splits exactly when Muon is on; under
+    ZeRO at a world above 1 (``zero_active``) the split is off, with a note
+    to log; ``manual_backward: auto`` is split on the full tree
+    (``full_tree``: no LoRA, no frozen leaf), and an explicit ``true`` that
+    cannot be honoured raises ``ValueError``. Returns (the three flags, the
+    notes to log once)."""
+    tr = config["training"]
+    notes = []
+    split = tr.get("split_optimizer_step", "auto")
+    if split == "auto":
+        split = bool(config["optimizer"].get("muon"))
+    if split and zero_active:
+        notes.append("split_optimizer_step is inert under zero_shard_optimizer on a "
+                     "multi-device mesh (ZeRO keeps the single-program step); "
+                     "continuing without it.")
+        split = False
+    manual = tr.get("manual_backward", "auto")
+    if manual == "auto":
+        manual = bool(split) and full_tree
+    elif manual and not (split and full_tree):
+        raise ValueError(
+            "training.manual_backward=true requires split_optimizer_step "
+            "(unavailable under zero_shard_optimizer on a multi-device "
+            "mesh) and full fine-tuning (no LoRA / train_only_*)")
+    return {"split_update": bool(split), "manual_backward": bool(manual),
+            "manual_precast": bool(tr.get("manual_precast_weights", False))}, notes
 
 
 def load_config(path) -> Dict[str, Any]:

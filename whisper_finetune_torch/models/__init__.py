@@ -12,6 +12,13 @@ from whisper_finetune_torch.models.whisper import (
     init_params,
     sinusoids,
 )
+from whisper_finetune_torch.models.decoding import (
+    DecodeFilters,
+    beam_decode,
+    default_filters,
+    greedy_decode,
+    transcribe_batch,
+)
 from whisper_finetune_torch.models.checkpoint import (
     fetch_checkpoint,
     load_checkpoint,
@@ -39,14 +46,18 @@ __all__ = [
     "MODEL_LAYER_PRESETS",
     "MODEL_PRESETS",
     "ModelDimensions",
+    "DecodeFilters",
     "ForwardConfig",
     "Whisper",
     "apply_lora",
+    "beam_decode",
+    "default_filters",
     "get_preset_dims",
     "decoder_forward",
     "encoder_forward",
     "fetch_checkpoint",
     "forward_impl",
+    "greedy_decode",
     "has_lora",
     "init_params",
     "load_checkpoint",
@@ -62,4 +73,5 @@ __all__ = [
     "save_checkpoint",
     "sinusoids",
     "state_dict_to_params",
+    "transcribe_batch",
 ]

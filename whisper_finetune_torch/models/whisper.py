@@ -554,6 +554,22 @@ def _kept(coins: Optional[np.ndarray], p: float, n_layers: int) -> List[bool]:
     return [not bool(c < np.float32(p)) for c in coins]
 
 
+def dsa_masks(fcfg: ForwardConfig, draws: Optional[ForwardDraws], n_layers: int,
+              x: torch.Tensor):
+    """Deep SpecAugment of an encoder forward over x (B, T, d): (per-layer
+    on-flags, (L, T) time and (L, d) feature keep-vectors in x's dtype, or
+    None where no layer is on)."""
+    gate = draws is not None and draws.dsa_gate < np.float32(fcfg.dsa_p)
+    dsa_on = dsa_layer_flags(fcfg, n_layers) & bool(gate)
+    if not dsa_on.any():
+        return dsa_on, None, None
+    time_keep = torch.from_numpy(axis_keep_masks(
+        draws.dsa_time, x.shape[1], fcfg.dsa_time_mask_param)).to(x.device, x.dtype)
+    feat_keep = torch.from_numpy(axis_keep_masks(
+        draws.dsa_feat, x.shape[2], fcfg.dsa_freq_mask_param)).to(x.device, x.dtype)
+    return dsa_on, time_keep, feat_keep
+
+
 # ---------------------------------------------------------------------------
 # Shared forward segments
 # ---------------------------------------------------------------------------
@@ -613,14 +629,7 @@ def encoder_forward(params: Params, mel: torch.Tensor, dims: ModelDimensions,
     draws = _training_draws(fcfg, dims, train, draws, generator, x.device)
 
     kept = _kept(draws.enc_coin if draws else None, fcfg.sd_encoder, L)
-    gate = draws is not None and draws.dsa_gate < np.float32(fcfg.dsa_p)
-    dsa_on = dsa_layer_flags(fcfg, L) & bool(gate)
-    time_keep = feat_keep = None
-    if dsa_on.any():
-        time_keep = torch.from_numpy(axis_keep_masks(
-            draws.dsa_time, x.shape[1], fcfg.dsa_time_mask_param)).to(x.device, dtype)
-        feat_keep = torch.from_numpy(axis_keep_masks(
-            draws.dsa_feat, x.shape[2], fcfg.dsa_freq_mask_param)).to(x.device, dtype)
+    dsa_on, time_keep, feat_keep = dsa_masks(fcfg, draws, L, x)
     lora_keep = _lora_keep(fcfg, draws, "enc_lora", x.device)
     block = _stochastic(_encoder_block, 1.0 - fcfg.sd_encoder if draws else 1.0)
     run = _remat(fcfg)
@@ -659,10 +668,14 @@ def decoder_forward(params: Params, tokens: torch.Tensor, xa: torch.Tensor,
         decoder_forward.blocks_run += 1
         x = run(block, fcfg.remat_decoder, x, bp, xa, fcfg, dims.n_text_head,
                 None if lora_keep is None else lora_keep[i])
+    return decoder_head(dec, x, dtype)
+
+
+def decoder_head(dec: Params, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Final layer norm and the tied output embedding: logits stored in the
+    compute dtype, upcast for the loss."""
     x = layer_norm(x, dec["ln"])
-    # Tied output embedding: stored in the compute dtype, upcast for the loss.
-    logits = torch.matmul(x.to(dtype), dec["tok_emb"].to(dtype).t())
-    return logits.float()
+    return torch.matmul(x.to(dtype), dec["tok_emb"].to(dtype).t()).float()
 
 
 # Blocks run by the layer loops (a layer dropped by stochastic depth is not

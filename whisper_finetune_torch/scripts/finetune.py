@@ -19,8 +19,10 @@ an optimizer step; ``zero_shard_optimizer`` shards the optimizer state
 logs and writes the ``.pt`` checkpoints; the ranks meet at barriers around
 them. ``training.save_train_state`` writes the whole train state at every
 eval step (``train/state_io.py``) and ``training.resume_from`` continues
-from one. The split optimizer program and the manual backward are refused
-with the ROADMAP item that brings them (``config.check_training_keys``).
+from one. ``split_optimizer_step``, ``manual_backward`` and
+``manual_precast_weights`` resolve as in the JAX driver
+(``config.resolve_step_keys``): ``auto`` splits the step where Muon is on and
+then takes the hand-written backward on a full fine-tune.
 The host builds samples in loader threads; each optimizer step's batch goes
 to the card from pinned memory with ``non_blocking`` copies while the card
 still runs the previous step.
@@ -47,6 +49,7 @@ from whisper_finetune_torch.config import (
     build_forward_config,
     build_model,
     check_training_keys,
+    resolve_step_keys,
     validate_config,
 )
 from whisper_finetune_torch.data import (
@@ -557,6 +560,10 @@ def main(config: Dict, device="cuda", backend: Optional[str] = None):
     if rt.IS_MAIN:
         pprint(config)
 
+    full_tree = len(named) == len(model.leaves()) and not is_lora_run
+    step_keys, step_notes = resolve_step_keys(config, full_tree, zero_shard)
+    for note in step_notes:
+        rt.print_once(note)
     step_fn = make_train_step(
         dims,
         fcfg,
@@ -567,6 +574,7 @@ def main(config: Dict, device="cuda", backend: Optional[str] = None):
         accum_dtype=config["training"].get("grad_accum_dtype"),
         grad_hist_every=int(config["training"]["val_steps"]),
         zero_shard=zero_shard,
+        **step_keys,
         device=dev,
     )
     eval_step = make_eval_step(dims, fcfg, n_mels=dims.n_mels)

@@ -37,12 +37,22 @@ the shards; the optimizer updates each rank's row views of the parameters
 with its shard of the state (:func:`train.zero.zero_shard_state`), and the
 updated rows are all-gathered.
 
-This is the non-split path. The split update and the manual backward come
-later (ROADMAP queue 1, item 13).
+With ``split_update`` (JAX's split program; inert under ZeRO at a world
+above 1, where the one-pass step stays) a step runs the accumulation into a
+persistent gradient buffer, reduces the sums once as above, retires the
+accumulation by reading the loss, then runs the update through
+``tx.fused_apply`` on the same sums: the same update as the one-pass step.
+After the update the buffer is zeroed in place and reused by the next step.
+Histograms are a pass of their own after the update, on histogram steps
+only. ``manual_backward`` (split only) accumulates through the hand-written
+backward of :mod:`whisper_finetune_torch.train.manual_grad`, which never
+builds a whole-tree float32 gradient; ``manual_precast`` casts each block
+stack to the compute dtype once a microbatch there.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import torch
@@ -55,6 +65,7 @@ from whisper_finetune_torch.models.whisper import (
     ForwardDraws,
     Params,
     Whisper,
+    _set,
     draw_forward,
     flatten,
     forward_impl,
@@ -243,6 +254,9 @@ def make_train_step(
     grad_hist_every: Optional[int] = None,
     grad_hist_bins: int = 64,
     zero_shard: bool = False,
+    split_update: bool = False,
+    manual_backward: bool = False,
+    manual_precast: bool = False,
     device="cuda",
 ) -> Callable[..., tuple]:
     """Build ``step(state, batch, generator=None, draws=None) -> (state, loss)``,
@@ -266,8 +280,16 @@ def make_train_step(
     In a process group (``parallel``) the batch is this rank's, the loss is
     the mean over ranks and the update is the same on every rank. With
     ``zero_shard`` at a world above 1, ``state.opt_state`` is this rank's
-    shard (:func:`whisper_finetune_torch.train.zero.zero_shard_state`)."""
+    shard (:func:`whisper_finetune_torch.train.zero.zero_shard_state`).
+
+    With ``split_update`` (not under ZeRO at a world above 1) the returned
+    step is the split step: same signature and results, histograms from the
+    state's own ``step``, and ``step.last_timing = {"accum_s", "update_s"}``
+    the wall times of its last call. ``manual_backward`` needs
+    ``split_update``."""
     resolve_device(device)
+    if manual_backward and not split_update:
+        raise ValueError("manual_backward requires split_update=True")
     fcfg.check_supported(dims.n_audio_layer)
     if not hasattr(tx, "fused_apply"):
         raise TypeError(f"{type(tx).__name__} has no fused_apply(grads, state, params, g_scale)")
@@ -287,32 +309,45 @@ def make_train_step(
                               draws=draws)
         return cross_entropy_loss(logits, mb["dec_output"], label_smoothing)
 
-    def accumulate(params, leaves, batch, generator, draws):
+    manual_acc = None
+    if manual_backward:
+        from whisper_finetune_torch.train.manual_grad import make_manual_accumulator
+
+        manual_acc = make_manual_accumulator(
+            dims, fcfg, lambda logits, targets: cross_entropy_loss(logits, targets,
+                                                                   label_smoothing),
+            feat_cfg=feat_cfg, precast=manual_precast)
+
+    def accumulate(params, leaves, batch, generator, draws, grad_buf=None):
         """Per-microbatch backward; gradient sums in the accumulator dtype
-        (each microbatch's gradients are float32 before the cast)."""
+        (each microbatch's gradients are float32 before the cast), added
+        into ``grad_buf`` (zeroed, in the leaves' order) where one is given."""
         accum = batch[data_keys[0]].shape[0]
         if draws is None:
             draws = (draw_forward(generator, dims, leaves[0].device, accum, lora=fcfg.lora_draws)
                      if fcfg.needs_draws else [None] * accum)
         elif len(draws) != accum:
             raise ValueError(f"{len(draws)} draws for {accum} microbatches")
-        grad_sum = None
+        grad_sum = grad_buf
         loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         for i in range(accum):
             loss = loss_fn(params, {k: batch[k][i] for k in data_keys}, generator, draws[i])
             # A leaf no kept layer used (stochastic depth dropped them all)
             # has no gradient: zeros, as in JAX.
             grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
-            for j, g in enumerate(grads):
-                if g is None:
-                    grads[j] = torch.zeros_like(leaves[j], dtype=acc_dt)
-                else:
-                    grads[j] = g.to(acc_dt) if acc_dt else g  # frees the fp32 copy
-            if grad_sum is None:
-                grad_sum = grads
+            if grad_sum is not None:
+                for j, a in enumerate(grad_sum):
+                    g, grads[j] = grads[j], None  # each float32 gradient freed once added
+                    if g is not None:
+                        a.add_(g.to(acc_dt) if acc_dt else g)
             else:
-                for a, g in zip(grad_sum, grads):
-                    a.add_(g)
+                for j, g in enumerate(grads):
+                    if g is None:
+                        grads[j] = torch.zeros_like(leaves[j], dtype=acc_dt)
+                    else:
+                        grads[j] = g.to(acc_dt) if acc_dt else g  # frees the fp32 copy
+                grad_sum = grads
+            del grads
             loss_sum = loss_sum + loss.detach()
         return grad_sum, accum, loss_sum / accum
 
@@ -352,6 +387,15 @@ def make_train_step(
     def want_hists(state) -> bool:
         return bool(grad_hist_every) and (state.step + 1) % grad_hist_every == 0
 
+    def mean_histograms(named, grad_sum, denominator: int) -> Dict[str, tuple]:
+        """Histograms of the mean gradients from the sums: the counts are the
+        same, the ranges scaled as JAX scales them (float32 ranges times
+        float32(1 / denominator))."""
+        scale = 1.0 / denominator
+        return {name: (c, lo * scale, hi * scale) for name, (c, lo, hi) in
+                grad_histograms([(path, g) for (path, _), g in zip(named, grad_sum)],
+                                grad_hist_bins).items()}
+
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              draws: Optional[Sequence[ForwardDraws]] = None):
@@ -390,10 +434,7 @@ def make_train_step(
         else:
             g_scale = reduce_sums(grad_sum, accum, n)
             if want_hists(state):
-                scale = 1.0 / (accum * n)  # as JAX: float32 ranges times float32(1 / denominator)
-                hists = {name: (c, lo * scale, hi * scale) for name, (c, lo, hi) in
-                         grad_histograms([(path, g) for (path, _), g in zip(named, grad_sum)],
-                                         grad_hist_bins).items()}
+                hists = mean_histograms(named, grad_sum, accum * n)
             opt_state = tx.fused_apply(grad_sum, state.opt_state, leaves, g_scale=g_scale)
         new_state = TrainState(state.model, opt_state, state.step + 1)
         if grad_hist_every:
@@ -402,4 +443,75 @@ def make_train_step(
             return new_state, loss, hists
         return new_state, loss
 
-    return step
+    if not split_update or (zero_shard and parallel.world() > 1):
+        return step
+
+    class SplitStep:
+        """The split step: ``step(state, batch, generator=None, draws=None)``
+        as the one-pass step's. An object rather than a closure that names
+        itself, so that its buffer goes with its last reference and not at
+        the next garbage collection."""
+
+        def __init__(self):
+            self._grad_buf = None  # allocated once, zeroed in place after every update
+            self._zero_hists = None
+            self.last_timing = None
+
+        def accumulate(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                       generator: Optional[torch.Generator] = None,
+                       draws: Optional[Sequence[ForwardDraws]] = None):
+            """The accumulation alone: (the gradient sums in the step's
+            buffer, in the trainable leaves' order; the mean loss). The
+            buffer is the caller's from here on."""
+            named = trainable_leaves(state.model)
+            buf, self._grad_buf = self._grad_buf, None
+            if buf is None:
+                buf = [torch.zeros(p.shape, dtype=acc_dt or p.dtype, device=p.device)
+                       for _, p in named]
+            accum = batch[data_keys[0]].shape[0]
+            if manual_acc is None:
+                leaves = [p for _, p in named]
+                return buf, accumulate(state.model.params(), leaves, batch, generator, draws,
+                                       buf)[2]
+            tree: Params = {}
+            for (path, _), b in zip(named, buf):
+                _set(tree, path, b)
+            _, loss_sum = manual_acc(state.model.params(), batch, generator, tree, draws)
+            return buf, loss_sum / accum
+
+        def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator] = None,
+                     draws: Optional[Sequence[ForwardDraws]] = None):
+            t0 = time.perf_counter()
+            named = trainable_leaves(state.model)
+            leaves = [p for _, p in named]
+            dev = leaves[0].device
+            buf, loss = self.accumulate(state, batch, generator, draws)
+            accum = batch[data_keys[0]].shape[0]
+            n = parallel.world()
+            loss = _div(parallel.all_reduce(loss), n)
+            g_scale = reduce_sums(buf, accum, n)
+            loss.item()  # retires the accumulation before the update starts
+            t1 = time.perf_counter()
+            opt_state = tx.fused_apply(buf, state.opt_state, leaves, g_scale=g_scale)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)  # retires the update
+            t2 = time.perf_counter()
+            new_state = TrainState(state.model, opt_state, state.step + 1)
+            hists = None
+            if grad_hist_every:
+                if want_hists(state):
+                    hists = mean_histograms(named, buf, accum * n)
+                else:
+                    if self._zero_hists is None:
+                        self._zero_hists = _zeros_histograms(named, grad_hist_bins, dev)
+                    hists = self._zero_hists
+            for b in buf:
+                b.zero_()
+            self._grad_buf = buf
+            self.last_timing = {"accum_s": t1 - t0, "update_s": t2 - t1}
+            if grad_hist_every:
+                return new_state, loss, hists
+            return new_state, loss
+
+    return SplitStep()
