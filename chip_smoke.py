@@ -136,6 +136,19 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    beside its bound, tokens/s, peaks, seconds a rung; then the transcribe
    CLI (``python -m whisper_finetune_torch.scripts.transcribe``) as a
    subprocess on the driver leg's fp16 ``last_model.pt`` and a wav.
+10. Packaging (``package``), on the driver leg's ``last_model.pt`` (large-v3,
+   32+32 at full width): the optional packages' versions; the conversion to
+   a Transformers model on the card (its seconds and peak apart from
+   ``save_pretrained``'s seconds; the safetensors against the float32 tree
+   with the tied embedding once); ``from_pretrained`` logits bit-equal to
+   the converter's; the HF float32 logits of 8 rows and 64 teacher-forced
+   tokens against the port's ``forward_impl`` on the same ``.pt``, bf16 under
+   ``auto`` (``attn_fwd`` once a block and a cross site; max |diff| <= 0.25)
+   and float32 on the plain attention; ``upload_model_to_hub --convert-hf
+   --local-only`` (the snapshot resolves through the HF cache, its ``.pt``
+   and JSONs bit-equal to their sources, its revision the content hash);
+   ``--convert-ct2``'s ``ImportError`` without ``ctranslate2``; the batch
+   CLI's ``run_batch`` over that ``.pt`` and a whisper-tiny one.
 
 ``--profile`` adds a ``torch.profiler`` window of two main-path steps: device
 time by kernel and group, and the device's busy share of the wall time.
@@ -2235,6 +2248,278 @@ def decode_leg(cli_checkpoint: Path, dims=None, device="cuda") -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: packaging (convert to HF, local publish, batch publish)
+# ---------------------------------------------------------------------------
+
+PACKAGE_ROWS, PACKAGE_TOKENS = 8, 64
+# The HF model against the port's float32 forward on the plain attention, max
+# |logit diff|: 3x the worst measured on an H100, 3.4e-5 (PERF.md §6, packaging).
+PACKAGE_F32_TOL = 1e-4
+PACKAGE_DIR = SCRATCH / "package"  # removed at the end of the leg
+
+
+def _versions(names) -> dict:
+    import importlib
+
+    out = {}
+    for name in names:
+        try:
+            out[name] = getattr(importlib.import_module(name), "__version__", "?")
+        except ImportError:
+            out[name] = "absent"
+    return out
+
+
+def _compare_logits(got, want, tol: float) -> dict:
+    """max / rms of |got - want|, and whether the argmax agrees wherever
+    ``want``'s top-2 margin exceeds ``tol``."""
+    diff = (got - want).abs()
+    top2 = want.topk(2, dim=-1).values
+    sure = top2[..., 0] - top2[..., 1] > tol
+    agree = (got.argmax(-1) == want.argmax(-1)) & sure
+    return {"max_abs_diff": diff.max().item(), "rms_diff": diff.square().mean().sqrt().item(),
+            "argmax_checked": int(sure.sum()), "argmax_agree": int(agree.sum())}
+
+
+def _check_snapshot(cache: Path, repo_id: str, pt: Path, assets) -> dict:
+    """A ``--local-only`` snapshot: resolved through the HF cache, its
+    ``.pt`` the source's bytes, each of ``assets`` (name -> expected file, or
+    None for present only) as expected, and its revision the content hash
+    recomputed over its files."""
+    import filecmp
+
+    from huggingface_hub import try_to_load_from_cache
+
+    from whisper_finetune_torch.scripts.upload_model_to_hub import snapshot_revision
+
+    resolved = try_to_load_from_cache(repo_id, pt.name, cache_dir=str(cache))
+    if not isinstance(resolved, str) or not filecmp.cmp(resolved, pt, shallow=False):
+        raise AssertionError(f"[package] {repo_id}: {pt.name} resolved to {resolved!r}, "
+                             "not the source's bytes")
+    snap = Path(resolved).parent
+    files = sorted(p.name for p in snap.iterdir())
+    if files != sorted({pt.name, "README.md", *assets}):
+        raise AssertionError(f"[package] {repo_id}: snapshot files {files}")
+    for name, want in assets.items():
+        if want is not None and not filecmp.cmp(snap / name, want, shallow=False):
+            raise AssertionError(f"[package] {repo_id}: {name} is not {want}")
+    readme = (snap / "README.md").read_text()
+    revision = snapshot_revision(repo_id, [(n, str(snap / n)) for n in files if n != "README.md"],
+                                 readme)
+    if snap.name != revision or "library_name: whisper_finetune_torch" not in readme:
+        raise AssertionError(f"[package] {repo_id}: revision {snap.name} != {revision}")
+    return {"revision": revision, "files": files}
+
+
+def package_leg(pt: Path, device="cuda") -> dict:
+    """The packaging CLIs on ``pt`` (the driver leg's fp16 ``last_model.pt``:
+    large-v3, 32 + 32 layers at full width). Probe the optional packages;
+    convert with ``convert_openai_whisper_to_tfms`` on the card (timed apart
+    from ``save_pretrained``; the files against the float32 tree with the tied
+    embedding once); read the folder back with ``from_pretrained`` (logits
+    bit-equal); hold the HF float32 logits of 8 rows of synthetic 30 s audio
+    (numpy seed 0) and 64 teacher-forced tokens against the port's
+    ``forward_impl`` on the same ``.pt`` read by ``load_model``: bf16 under
+    ``auto`` (max |diff| <= DECODE_LOGIT_TOL; ``attn_fwd`` once a block and a
+    cross site, counted from ``blocks_run``) and float32 on the plain attention
+    (<= PACKAGE_F32_TOL); ``upload_model_to_hub.main --convert-hf --local-only``
+    (the snapshot resolves, its ``.pt`` is ``pt``'s bytes, its JSONs
+    ``whisper_v3_utils``'s, its revision the content hash); ``--convert-ct2``
+    raises ``convert_to_ct2``'s ``ImportError`` without ``ctranslate2``; the
+    batch CLI's ``run_batch`` over ``pt`` and a whisper-tiny ``.pt`` (two
+    snapshots, checked alike). Without ``transformers`` every conversion must
+    raise the ``ImportError`` instead."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from whisper_finetune_torch.models import get_preset_dims, init_params, load_model
+    from whisper_finetune_torch.models import save_checkpoint
+    from whisper_finetune_torch.models import whisper as W
+    from whisper_finetune_torch.models.whisper import ForwardConfig, forward_impl
+    from whisper_finetune_torch.ops.attention import resolve_auto_impls
+    from whisper_finetune_torch.ops.spec_augment import FeaturizeConfig, featurize_impl
+    from whisper_finetune_torch.scripts import upload_model_to_hub as up
+    from whisper_finetune_torch.scripts import wandb_to_ct2_upload as batch
+    from whisper_finetune_torch.scripts.convert_openai_to_hf import convert_openai_whisper_to_tfms
+    from whisper_finetune_torch.tokenizer import get_tokenizer
+    from whisper_finetune_torch.tools import first_slice as fs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_leg = time.perf_counter()
+    versions = _versions(("transformers", "huggingface_hub", "safetensors", "ctranslate2",
+                          "wandb"))
+    log(f"  [package] {json.dumps(versions)} ({smi_line()})")
+    shutil.rmtree(PACKAGE_DIR, ignore_errors=True)
+    PACKAGE_DIR.mkdir(parents=True)
+    tiny_pt = PACKAGE_DIR / "tiny.pt"
+    tiny_dims = get_preset_dims("tiny")
+    save_checkpoint(str(tiny_pt), init_params(tiny_dims, device=device, seed=0), tiny_dims)
+
+    def publish(ckpt: Path, repo_id: str, *extra):
+        up.main(up.build_parser().parse_args([
+            "--checkpoint", str(ckpt), "--repo-id", repo_id, "--workdir",
+            str(PACKAGE_DIR / "work"), "--convert-hf", "--local-only", "--cache-dir",
+            str(PACKAGE_DIR / "cache"), "--device", str(device), *extra]))
+
+    if versions["transformers"] == "absent":
+        attempts = {
+            "convert": lambda: convert_openai_whisper_to_tfms(str(pt), None, device=device),
+            "publish": lambda: publish(pt, "wft/large-v3-smoke"),
+            "batch": lambda: batch.run_batch([str(pt)], ["wft/large-v3-batch"], ["float16"],
+                                             str(PACKAGE_DIR / "work"), True, False,
+                                             cache_dir=str(PACKAGE_DIR / "cache"),
+                                             device=device),
+        }
+        for name, attempt in attempts.items():
+            try:
+                attempt()
+            except ImportError as exc:
+                log(f"  [package] {name}: ImportError as expected without transformers: {exc}")
+                continue
+            raise AssertionError(f"[package] {name} ran without transformers")
+        shutil.rmtree(PACKAGE_DIR)
+        return {"versions": versions, "transformers": "absent",
+                "launches": {"attn_fwd": 0, "attn_bwd": 0, "fused_adamw8_leaf": 0}}
+
+    from transformers import WhisperForConditionalGeneration
+
+    # Convert on the card, then write: timed apart.
+    _sync()
+    t0 = time.perf_counter()
+    hf, multilingual, n_lang = convert_openai_whisper_to_tfms(str(pt), None, device=device)
+    _sync()
+    convert_s = time.perf_counter() - t0
+    convert_peak = torch.cuda.max_memory_allocated()
+    hf_dir = PACKAGE_DIR / "hf"
+    t0 = time.perf_counter()
+    hf.save_pretrained(str(hf_dir))
+    write_s = time.perf_counter() - t0
+    disk_bytes = sum(p.stat().st_size for p in hf_dir.iterdir())
+    weight_bytes = sum(p.stat().st_size for p in hf_dir.glob("*.safetensors"))
+    once = {p.data_ptr(): p for p in hf.parameters()}  # the tied embedding once
+    reckoned = sum(p.numel() * 4 for p in once.values())
+    placed = all(p.dtype == torch.float32 and p.device.type == torch.device(device).type
+                 for p in once.values())
+    del once
+    if not placed or not 0 <= weight_bytes - reckoned < 1e6 or \
+            hf.proj_out.weight.data_ptr() != hf.model.decoder.embed_tokens.weight.data_ptr():
+        raise AssertionError(f"[package] {weight_bytes} safetensors bytes against {reckoned} "
+                             "reckoned (float32 on the device, the tied embedding once)")
+    log(f"  [package] t+{time.perf_counter() - t_leg:.1f} s: converted on the card in "
+        f"{convert_s:.1f} s (peak {convert_peak / GB:.3f} "
+        f"GB), written in {write_s:.1f} s: {disk_bytes / GB:.3f} GB on disk "
+        f"({weight_bytes / GB:.3f} GB of weights; reckoned {reckoned / GB:.3f})")
+
+    # Inputs: the decode leg's audio, the sot sequence and random text tokens.
+    tok = get_tokenizer(language="de", task="transcribe")
+    rng = np.random.default_rng(0)
+    audio = (rng.standard_normal((PACKAGE_ROWS, 480000)) * 0.05).astype(np.float32)
+    sot = np.tile(np.array(tok.sot_sequence), (PACKAGE_ROWS, 1))
+    text = rng.integers(0, tok.eot, (PACKAGE_ROWS, PACKAGE_TOKENS - sot.shape[1]))
+    tokens = torch.from_numpy(np.concatenate([sot, text], 1)).to(device)
+    with torch.no_grad():
+        mel = featurize_impl(torch.from_numpy(audio).to(device),
+                             torch.full((PACKAGE_ROWS,), 3000, dtype=torch.int32, device=device),
+                             None, FeaturizeConfig(n_mels=hf.config.num_mel_bins), train=False)
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # float32 convolutions in both float32 forwards
+    try:
+        with torch.no_grad():
+            ref = hf.eval()(input_features=mel, decoder_input_ids=tokens).logits
+            del hf
+            t0 = time.perf_counter()
+            back = WhisperForConditionalGeneration.from_pretrained(str(hf_dir))
+            back = back.to(device).eval()
+            read_s = time.perf_counter() - t0
+            if any(p.dtype != torch.float32 for p in back.parameters()):
+                raise AssertionError("[package] from_pretrained did not give float32 weights")
+            reread = back(input_features=mel, decoder_input_ids=tokens).logits
+            del back
+        if not torch.equal(reread, ref):
+            raise AssertionError(f"[package] from_pretrained logits differ from the converter's: "
+                                 f"max {(reread - ref).abs().max().item()}")
+        del reread
+        shutil.rmtree(hf_dir)
+        torch.cuda.empty_cache()
+
+        # The port's forward on the same .pt: bf16 through the kernels, float32 plain.
+        model, pdims = load_model(str(pt), device=device)
+        params = model.params()
+        bf16 = ForwardConfig(compute_dtype="bfloat16", remat_encoder=False, remat_decoder=False,
+                             **resolve_auto_impls(device))
+        f32 = ForwardConfig(compute_dtype="float32", remat_encoder=False, remat_decoder=False)
+        kernels = fs.reset_counts()
+        with torch.no_grad():
+            port_bf16 = forward_impl(params, mel, tokens, pdims, bf16)
+            _sync()
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            blocks = (W.encoder_forward.blocks_run, W.decoder_forward.blocks_run)
+            port_f32 = forward_impl(params, mel, tokens, pdims, f32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    expect = {"attn_fwd": sum(blocks), "attn_bwd": 0, "fused_adamw8_leaf": 0}
+    if launches != expect or blocks != (pdims.n_audio_layer, pdims.n_text_layer):
+        raise AssertionError(f"[package] launches {launches} != {expect} (blocks run {blocks})")
+    cmp_bf16 = _compare_logits(port_bf16, ref, DECODE_LOGIT_TOL)
+    cmp_f32 = _compare_logits(port_f32, ref, PACKAGE_F32_TOL)
+    ref_std = ref.std().item()
+    log(f"  [package] t+{time.perf_counter() - t_leg:.1f} s: HF float32 logits (std "
+        f"{ref_std:.3f}) against the port: bf16 + attn_fwd "
+        f"{json.dumps(cmp_bf16)}; float32 plain {json.dumps(cmp_f32)}; launches {launches}")
+    for cmp, tol in ((cmp_bf16, DECODE_LOGIT_TOL), (cmp_f32, PACKAGE_F32_TOL)):
+        if not cmp["max_abs_diff"] <= tol or cmp["argmax_agree"] != cmp["argmax_checked"]:
+            raise AssertionError(f"[package] the port against the HF model: {cmp} (limit {tol})")
+    del model, params, port_bf16, port_f32, ref, mel
+    torch.cuda.empty_cache()
+
+    # Publish locally; --convert-ct2 without ctranslate2; the batch CLI.
+    assets = {n: ROOT / "whisper_v3_utils" / n for n in up.DEPLOYMENT_ASSET_FILES}
+    t0 = time.perf_counter()
+    publish(pt, "wft/large-v3-smoke")
+    publish_s = time.perf_counter() - t0
+    snapshots = {"wft/large-v3-smoke": _check_snapshot(PACKAGE_DIR / "cache",
+                                                       "wft/large-v3-smoke", pt, assets)}
+    shutil.rmtree(PACKAGE_DIR / "work")
+    ct2 = None
+    if versions["ctranslate2"] == "absent":
+        try:
+            publish(tiny_pt, "wft/tiny-ct2", "--convert-ct2")
+        except ImportError as exc:
+            ct2 = str(exc)
+        if ct2 is None or "ctranslate2" not in ct2:
+            raise AssertionError(f"[package] --convert-ct2 without ctranslate2: {ct2!r}")
+    t0 = time.perf_counter()
+    repos = ["wft/large-v3-batch", "wft/tiny-batch"]
+    batch.run_batch([str(pt), str(tiny_pt)], repos, ["float16"], str(PACKAGE_DIR / "batch"),
+                    local_only=True, convert_ct2=False, cache_dir=str(PACKAGE_DIR / "cache2"),
+                    device=device)
+    batch_s = time.perf_counter() - t0
+    snapshots[repos[0]] = _check_snapshot(PACKAGE_DIR / "cache2", repos[0], pt, assets)
+    snapshots[repos[1]] = _check_snapshot(PACKAGE_DIR / "cache2", repos[1], tiny_pt, {
+        "config.json": PACKAGE_DIR / "batch" / "wft__tiny-batch" / "hf" / "config.json",
+        "preprocessor_config.json": None})
+    shutil.rmtree(PACKAGE_DIR)
+    rec = {
+        "versions": versions, "convert_s": convert_s, "convert_peak_bytes": convert_peak,
+        "write_s": write_s, "disk_bytes": disk_bytes, "weight_bytes": weight_bytes,
+        "reckoned_bytes": reckoned, "read_s": read_s, "multilingual": multilingual,
+        "languages": n_lang, "logits_std": ref_std, "bf16": cmp_bf16, "float32": cmp_f32,
+        "launches": launches, "blocks_run": list(blocks), "publish_s": publish_s,
+        "batch_s": batch_s, "ct2_import_error": ct2, "snapshots": snapshots,
+        "peak_bytes": torch.cuda.max_memory_allocated(), "s": time.perf_counter() - t_leg,
+    }
+    log(f"  [package] from_pretrained in {read_s:.1f} s, logits bit-equal; local publish "
+        f"{publish_s:.1f} s, batch of 2 {batch_s:.1f} s, snapshots "
+        f"{ {k: v['revision'][:12] for k, v in snapshots.items()} }; --convert-ct2: "
+        f"{ct2!r}; leg {rec['s']:.1f} s, peak {rec['peak_bytes'] / GB:.3f} GB ({smi_line()})")
+    return rec
+
+
 def profile_steps(step, state, batch, gen, n_steps: int = 2) -> dict:
     """Device time by kernel over ``n_steps`` main-path steps
     (``torch.profiler``), grouped, with the device's busy share of the
@@ -2469,7 +2754,6 @@ def main() -> int:
                       "launches": split["launches"], "card": smi_line()}), flush=True)
     log("KV-cached decoding and the transcribe CLI (large-v3):")
     decode = decode_leg(DRIVER_PT)
-    DRIVER_PT.unlink()
     print(json.dumps({"leg": "decode", "encoder_ms": decode["encoder_ms"],
                       "greedy_ms_per_token": decode["greedy_per_token"]["ms"],
                       "beam_ms_per_token": decode["beam_per_token"]["ms"],
@@ -2480,6 +2764,16 @@ def main() -> int:
                       "logit_max_abs_diff": decode["logit_max_abs_diff"],
                       "launches": decode["launches"], "cli_s": decode["cli"]["s"],
                       "card": smi_line()}), flush=True)
+    log("packaging: convert to HF, local publish, batch publish (large-v3):")
+    package = package_leg(DRIVER_PT)
+    DRIVER_PT.unlink()
+    print(json.dumps({"leg": "package", **{k: package.get(k) for k in (
+        "versions", "convert_s", "write_s", "read_s", "publish_s", "batch_s", "s")},
+        "disk_gb": package.get("disk_bytes", 0) / GB,
+        "peak_gb": package.get("peak_bytes", 0) / GB,
+        "logit_max_abs_diff": {k: package[k]["max_abs_diff"] for k in ("bf16", "float32")
+                               if k in package},
+        "launches": package["launches"], "card": smi_line()}), flush=True)
     new_legs = {**{f"remat {k}": v for k, v in remat.items()}, "lora": lora, "surgery": surgery}
     for name, leg in new_legs.items():
         print(json.dumps({"leg": name, "step_ms_median": leg["step_s_median"] * 1e3,
@@ -2493,7 +2787,8 @@ def main() -> int:
     by_leg = {"splash_adamw8": main_rec["launches"], **{k: v["launches"] for k, v in legs.items()},
               **{k: v["launches"] for k, v in new_legs.items()}, "driver": driver["launches"],
               **ddp["launches"], "split accum 2 x 3": split["compare_launches"],
-              "split": split["launches"], "decode": decode["launches"]}
+              "split": split["launches"], "decode": decode["launches"],
+              "package": package["launches"]}
     kernels = attention_entries(enc, cross, dec_self, attn_err, repeatable, fwd_res, by_leg,
                                 per_step)
     kernels.append({
@@ -2516,6 +2811,7 @@ def main() -> int:
               "adamw8_check": adam, "attn_bwd_repeatable": repeatable,
               "main_path": main_rec, "flagship_legs": legs, "model_layer_legs": new_legs,
               "driver_leg": driver, "ddp_leg": ddp, "split_leg": split, "decode_leg": decode,
+              "package_leg": package,
               "seconds": time.perf_counter() - T_START}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -53,7 +53,10 @@ def test_port_imports_no_jax():
         "whisper_finetune_torch.parallel, whisper_finetune_torch.train.zero, "
         "whisper_finetune_torch.train.state_io, whisper_finetune_torch.scripts.evaluate, "
         "whisper_finetune_torch.train.manual_grad, whisper_finetune_torch.models.decoding, "
-        "whisper_finetune_torch.scripts.transcribe\n"
+        "whisper_finetune_torch.scripts.transcribe, "
+        "whisper_finetune_torch.scripts.convert_openai_to_hf, "
+        "whisper_finetune_torch.scripts.upload_model_to_hub, "
+        "whisper_finetune_torch.scripts.wandb_to_ct2_upload\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'whisper_finetune_tpu')]\n"
         "print(bad)\n"
@@ -196,3 +199,122 @@ def test_unported_forward_options_raise(field, value):
 ])
 def test_ported_forward_options_are_supported(field, value):
     ForwardConfig(**{field: value}).check_supported()
+
+
+def test_count_parameters_and_runtime_helpers_match_jax(monkeypatch):
+    from whisper_finetune_tpu import utils as jax_utils
+    from whisper_finetune_torch import runtime, utils
+
+    params = jax_init_params(jax.random.PRNGKey(0), DIMS)
+    model = params_from_jax(jax.tree.map(np.asarray, params), _torch_dims(DIMS), device="cpu")
+    want = jax_utils.count_parameters(params)
+    assert utils.count_parameters(model) == utils.count_parameters(model.params()) == want
+    assert utils.count_parameters(params_to_numpy(model)) == want
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "IS_DISTRIBUTED", "IS_MAIN"):
+        monkeypatch.setattr(runtime, name, getattr(runtime, name))
+    runtime.setup_distributed("cpu")
+    assert runtime.is_main() is True and runtime.IS_DISTRIBUTED is False
+    monkeypatch.setattr(runtime, "IS_MAIN", False)
+    assert runtime.is_main() is False
+    assert runtime.watch(model.params(), log="all") is None
+
+
+# ---------------------------------------------------------------------------
+# Public-name closure: the port keeps every public name of the JAX package
+# ---------------------------------------------------------------------------
+
+JAX_PKG = ROOT / "whisper_finetune_tpu"
+JAX_MODULES = sorted(str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("*.py"))
+
+# JAX public names the port has no counterpart for, each with the reason.
+JAX_ONLY = {
+    "models/__init__.py": {"forward": "jax.jit of forward_impl; the port calls forward_impl"},
+    "models/whisper.py": {
+        "forward": "jax.jit of forward_impl; the port calls forward_impl",
+        "encoder_step_rng": "JAX PRNG-key splits; the port draws from a torch.Generator "
+                            "(draw_forward)",
+        "decoder_step_rng": "JAX PRNG-key splits, as encoder_step_rng",
+    },
+    # ops.attention is the port's attention submodule, not JAX's re-exported
+    # dispatcher, which would shadow it (ROADMAP queue 3, h).
+    "ops/__init__.py": {"featurize_batch": "jax.jit of featurize_impl"},
+    "ops/spec_augment.py": {"featurize_batch": "jax.jit of featurize_impl"},
+    "ops/attention.py": {"SPLASH_VARIANTS": "the Pallas splash kernel's variants"},
+    "ops/fused_adamw8.py": {"GROUP": "the Pallas kernel's scale rows on the TPU's lanes"},
+    "optim/optimizers.py": {"FusedMultiTransform": "an optax transformation class"},
+    "optim/quantized.py": {
+        "FusedGradientTransformation": "an optax transformation class",
+        "ScaleByAdam8bitState": "an optax state class; the port's state is AdamW8bit's",
+        "scale_by_adam_8bit": "an optax transformation; the port's is AdamW8bit",
+    },
+    "parallel/__init__.py": {
+        "batch_sharding": "a NamedSharding over a JAX Mesh (parallel/mesh.py)",
+        "get_data_mesh": "a JAX Mesh; a port process drives one card (parallel/comm.py)",
+        "replicated_sharding": "a NamedSharding over a JAX Mesh (parallel/mesh.py)",
+    },
+    "parallel/mesh.py": {
+        "DATA_AXIS": "the JAX Mesh's axis name",
+        "batch_sharding": "a NamedSharding over a JAX Mesh",
+        "get_data_mesh": "a JAX Mesh; a port process drives one card (parallel/comm.py)",
+        "replicated_sharding": "a NamedSharding over a JAX Mesh",
+    },
+    "train/step.py": {
+        "partition_params": "optax's frozen partitions; the port marks requires_grad "
+                            "(mark_trainable)",
+        "combine_params": "optax's frozen partitions, as partition_params",
+        "shard_batch": "placement on a JAX Mesh",
+        "zero_state_sharding": "NamedShardings of ZeRO's state; the port's is train/zero.py",
+    },
+    "utils.py": {"apply_platform_env": "pins JAX's platform choice"},
+}
+# JAX public names the port keeps in another module: (module, name) -> its module.
+MOVED = {
+    ("scripts/finetune.py", "build_forward_config"): "config.py",
+    ("scripts/finetune.py", "build_featurize_config"): "config.py",
+    ("scripts/finetune.py", "build_trainable_mask"): "train/step.py",
+}
+
+
+def _public_names(path: Path) -> set:
+    """Top-level names a module defines (a package's ``__init__`` also the
+    names it imports), but those starting with an underscore."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            names.update(n.id for t in targets for n in ast.walk(t) if isinstance(n, ast.Name))
+        elif (path.name == "__init__.py" and isinstance(node, ast.ImportFrom)
+              and node.module != "__future__"):
+            names.update(a.asname or a.name for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+def _port_module(rel: str):
+    import importlib
+
+    dotted = rel[: -len(".py")].replace("/", ".")
+    if dotted.endswith("__init__"):
+        dotted = dotted[: -len(".__init__")]
+    return importlib.import_module(
+        "whisper_finetune_torch" + ("." + dotted if dotted else ""))
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_port_keeps_jax_public_names(rel):
+    names = _public_names(JAX_PKG / rel)
+    only = JAX_ONLY.get(rel, {})
+    assert set(only) <= names, f"stale JAX_ONLY entries: {set(only) - names}"
+    if not (ROOT / "whisper_finetune_torch" / rel).exists():
+        assert set(only) == names, f"{rel} has no port module; unported: {names - set(only)}"
+        return
+    port = _port_module(rel)
+    kept = {n for n in names if hasattr(port, n)}
+    assert not kept & set(only), f"JAX_ONLY names the port has: {kept & set(only)}"
+    for name in sorted(names - kept - set(only)):
+        moved = MOVED.get((rel, name))
+        assert moved, f"{rel}: the port lacks {name}"
+        assert hasattr(_port_module(moved), name), (rel, name, moved)

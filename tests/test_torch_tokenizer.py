@@ -1,14 +1,26 @@
 """The port's tokenizer and native core against the JAX package's: the same
 special-token layout, the same ids for every text (the C++ merge loop and
 the pure-Python one), the same BPE-dropout segmentations under one seed, and
-the same edit distances. All exact."""
+the same edit distances. All exact.
 
+The JAX package's loader builds its library into a temporary name shared by
+every process (``<so>.build``), so two test workers building at once can
+break each other's build, after which that worker's JAX native path stays
+off. The tests that need JAX's native path take :func:`jax_native`, which
+builds the library once under a file lock into ``build/native/`` and points
+the JAX loader at it."""
+
+import fcntl
+import hashlib
+import os
 import random
+import subprocess
 from pathlib import Path
 
 import numpy as np
 import pytest
 
+import whisper_finetune_tpu.native as jax_native_module
 from whisper_finetune_tpu.native import NativeBPE as JNativeBPE
 from whisper_finetune_tpu.native import levenshtein_ids as j_levenshtein_ids
 from whisper_finetune_tpu.tokenizer import get_tokenizer as j_get_tokenizer
@@ -36,8 +48,36 @@ TEXTS = [
 
 
 @pytest.fixture(scope="module")
-def toks():
-    return j_get_tokenizer(language="de", task="transcribe"), get_tokenizer(
+def jax_native():
+    """JAX's native library, built once (under a lock, into a name of this
+    process, then renamed into place) as ``build/native/jax_wf_native_<hash>.so``
+    and loaded through JAX's own ``get_lib`` with its state reset."""
+    src = Path(jax_native_module._SRC)
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    out_dir = ROOT / "build" / "native"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"jax_wf_native_{digest}.so"
+    with open(out_dir / "jax_wf_native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            tmp = f"{so}.{os.getpid()}.build"
+            subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(src), "-o", tmp],
+                           check=True, capture_output=True)
+            os.replace(tmp, so)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native_module, "_so_path", lambda: str(so))
+        mp.setattr(jax_native_module, "_lib", None)
+        mp.setattr(jax_native_module, "_build_failed", False)
+        lib = jax_native_module.get_lib()
+        assert lib is not None
+        yield lib
+
+
+@pytest.fixture(scope="module")
+def toks(jax_native):
+    # Past get_tokenizer's cache: a JAX tokenizer built earlier in this
+    # process may have been built without the native path.
+    return j_get_tokenizer.__wrapped__(language="de", task="transcribe"), get_tokenizer(
         language="de", task="transcribe")
 
 
@@ -78,7 +118,7 @@ def test_encode_decode_match_jax(toks):
 
 
 @pytest.mark.parametrize("native_path", [True, False])
-def test_bpe_dropout_matches_jax_under_one_seed(native_path):
+def test_bpe_dropout_matches_jax_under_one_seed(native_path, jax_native):
     j = JWhisperTokenizer(language="de")
     t = WhisperTokenizer(language="de")
     if not native_path:
@@ -95,7 +135,7 @@ def test_bpe_dropout_matches_jax_under_one_seed(native_path):
                for s in range(5))
 
 
-def test_native_matches_jax_native():
+def test_native_matches_jax_native(jax_native):
     rng = np.random.default_rng(0)
     for _ in range(40):
         a = rng.integers(0, 6, rng.integers(0, 30)).tolist()

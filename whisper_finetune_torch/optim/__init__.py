@@ -1,5 +1,16 @@
-from whisper_finetune_torch.optim.muon import Muon, newton_schulz_orthogonalize, scale_by_muon
-from whisper_finetune_torch.optim.optimizers import Adam, MuonWithAuxAdam, get_optimizer
+from whisper_finetune_torch.optim.muon import (
+    Muon,
+    muon_shape_scale,
+    newton_schulz_orthogonalize,
+    rms_match_scale,
+    scale_by_muon,
+)
+from whisper_finetune_torch.optim.optimizers import (
+    Adam,
+    MuonWithAuxAdam,
+    get_optimizer,
+    muon_param_labels,
+)
 from whisper_finetune_torch.optim.quantized import AdamW8bit, adam_8bit, adamw_8bit
 from whisper_finetune_torch.optim.schedulers import get_schedule
 
@@ -12,6 +23,9 @@ __all__ = [
     "adamw_8bit",
     "get_optimizer",
     "get_schedule",
+    "muon_param_labels",
+    "muon_shape_scale",
     "newton_schulz_orthogonalize",
+    "rms_match_scale",
     "scale_by_muon",
 ]

@@ -35,6 +35,7 @@ import torch
 RANK = 0
 WORLD_SIZE = 1
 LOCAL_RANK = 0
+IS_DISTRIBUTED = False
 IS_MAIN = True
 
 _wandb = None
@@ -52,7 +53,7 @@ def setup_distributed(device: Union[str, torch.device] = "cuda",
     the default process group at ``MASTER_ADDR:MASTER_PORT`` with that
     backend (default ``nccl`` for a card, ``gloo`` for the CPU) and raises
     ``RuntimeError`` if it cannot."""
-    global RANK, WORLD_SIZE, LOCAL_RANK, IS_MAIN
+    global RANK, WORLD_SIZE, LOCAL_RANK, IS_DISTRIBUTED, IS_MAIN
     import torch.distributed as dist
 
     world_size = int(os.environ.get("WORLD_SIZE", "1"))
@@ -78,8 +79,13 @@ def setup_distributed(device: Union[str, torch.device] = "cuda",
                 f"rank {rank} of {world_size}: could not start the {backend} process "
                 f"group at {addr}:{port}: {exc}") from exc
     RANK, WORLD_SIZE, LOCAL_RANK = rank, world_size, local_rank
+    IS_DISTRIBUTED = WORLD_SIZE > 1
     IS_MAIN = RANK == 0
     return dev
+
+
+def is_main() -> bool:
+    return IS_MAIN
 
 
 def print_once(*args, **kwargs) -> None:
@@ -168,6 +174,14 @@ def _to_jsonable(value: Any) -> Any:
             return float(value)
         except (TypeError, ValueError):
             return str(value)
+
+
+def watch(params, **kwargs) -> None:
+    """``wandb.watch(model, log="all")``'s place, kept so that call sites
+    shaped like the reference's work: a no-op, because the training loop
+    already logs what it would (gradient histograms from the train step as
+    ``grads_hist/*``, parameter histograms as ``params_hist/*`` and norms as
+    ``params/*``, in ``scripts/finetune.py``)."""
 
 
 def save_wandb_file(path: str) -> None:

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import yaml
 
+from whisper_finetune_torch.models.whisper import Whisper, flatten
+
 
 def calculate_training_steps(config: Dict[str, Any], num_samples: int, world_size: int = 1,
                              drop_last: bool = True) -> int:
@@ -94,10 +96,17 @@ def get_unique_base_path() -> str:
     return os.getenv("SLURM_JOB_ID", datetime.now().strftime("%Y%m%d_%H%M%S"))
 
 
+def count_parameters(params) -> int:
+    """Total number of scalars in a :class:`~whisper_finetune_torch.models.whisper.Whisper`
+    or a nested dict of tensors or arrays."""
+    if isinstance(params, Whisper):
+        params = params.params()
+    return sum(int(np.prod(t.shape)) for _, t in flatten(params))
+
+
 def print_trainable_parameters(model) -> None:
     """Trainable (``requires_grad``) against total parameter counts of a
     :class:`~whisper_finetune_torch.models.whisper.Whisper`."""
-    leaves = [p for _, p in model.leaves()]
-    total = sum(p.numel() for p in leaves)
-    trainable = sum(p.numel() for p in leaves if p.requires_grad)
+    total = count_parameters(model)
+    trainable = sum(p.numel() for _, p in model.leaves() if p.requires_grad)
     print(f"Number of trainable parameters: {trainable:,} out of total {total:,}.")
