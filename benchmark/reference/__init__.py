@@ -1,0 +1,1 @@
+"""Plain float32 PyTorch references: they import nothing of the program."""
