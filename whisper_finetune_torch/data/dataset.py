@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from whisper_finetune_torch.ops.mel import FRAMES_PER_SECOND, N_FRAMES, N_SAMPLES
+from whisper_finetune_torch.runtime import span
 
 _TIMESTAMP_PATTERN = re.compile(r"(<\|[123]?[0-9]\.[0-9][0-9]\|>)")
 MODEL_N_TEXT_CTX = 448
@@ -267,31 +268,32 @@ def collate(samples: List[Dict[str, Any]], pad_to=MODEL_N_TEXT_CTX) -> Dict[str,
     448)): the smallest bucket holding the batch is chosen, skipping decoder
     compute on short batches.
     """
-    max_len = max(len(s["dec_input"]) for s in samples)
-    if pad_to is None:
-        target_len = max_len
-    elif isinstance(pad_to, (list, tuple)):
-        fitting = [b for b in sorted(pad_to) if b >= max_len]
-        if not fitting:
-            raise ValueError(
-                f"Sequence length {max_len} exceeds largest bucket {max(pad_to)}"
-            )
-        target_len = fitting[0]
-    else:
-        target_len = pad_to
-    if max_len > target_len:
-        raise ValueError(f"Sequence length {max_len} exceeds pad_to={target_len}")
+    with span("wft.collate"):
+        max_len = max(len(s["dec_input"]) for s in samples)
+        if pad_to is None:
+            target_len = max_len
+        elif isinstance(pad_to, (list, tuple)):
+            fitting = [b for b in sorted(pad_to) if b >= max_len]
+            if not fitting:
+                raise ValueError(
+                    f"Sequence length {max_len} exceeds largest bucket {max(pad_to)}"
+                )
+            target_len = fitting[0]
+        else:
+            target_len = pad_to
+        if max_len > target_len:
+            raise ValueError(f"Sequence length {max_len} exceeds pad_to={target_len}")
 
-    audio = np.stack([s["audio"] for s in samples])
-    crop = np.asarray([s["crop_frames"] for s in samples], dtype=np.int32)
-    dec_in = np.zeros((len(samples), target_len), dtype=np.int32)
-    dec_out = np.full((len(samples), target_len), -100, dtype=np.int32)
-    for i, s in enumerate(samples):
-        dec_in[i, : len(s["dec_input"])] = s["dec_input"]
-        dec_out[i, : len(s["dec_output"])] = s["dec_output"]
-    return {
-        "audio": audio,
-        "crop_frames": crop,
-        "dec_input": dec_in,
-        "dec_output": dec_out,
-    }
+        audio = np.stack([s["audio"] for s in samples])
+        crop = np.asarray([s["crop_frames"] for s in samples], dtype=np.int32)
+        dec_in = np.zeros((len(samples), target_len), dtype=np.int32)
+        dec_out = np.full((len(samples), target_len), -100, dtype=np.int32)
+        for i, s in enumerate(samples):
+            dec_in[i, : len(s["dec_input"])] = s["dec_input"]
+            dec_out[i, : len(s["dec_output"])] = s["dec_output"]
+        return {
+            "audio": audio,
+            "crop_frames": crop,
+            "dec_input": dec_in,
+            "dec_output": dec_out,
+        }

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from whisper_finetune_torch.data.dataset import MODEL_N_TEXT_CTX, SampleDataset, collate
+from whisper_finetune_torch.runtime import span
 
 
 class BatchLoader:
@@ -145,20 +146,21 @@ def stack_microbatches(
     length bucketing, microbatches in one optimizer step may land in
     different buckets — re-pad token arrays to the largest before stacking
     (0 for inputs, -100 for targets)."""
-    out = {}
-    for k in batches[0]:
-        arrays = [b[k] for b in batches]
-        if k in ("dec_input", "dec_output") and len(
-            {a.shape[-1] for a in arrays}
-        ) > 1:
-            target = max(a.shape[-1] for a in arrays)
-            fill = -100 if k == "dec_output" else 0
-            arrays = [
-                np.pad(a, ((0, 0), (0, target - a.shape[-1])), constant_values=fill)
-                for a in arrays
-            ]
-        out[k] = np.stack(arrays)
-    return out
+    with span("wft.stack"):
+        out = {}
+        for k in batches[0]:
+            arrays = [b[k] for b in batches]
+            if k in ("dec_input", "dec_output") and len(
+                {a.shape[-1] for a in arrays}
+            ) > 1:
+                target = max(a.shape[-1] for a in arrays)
+                fill = -100 if k == "dec_output" else 0
+                arrays = [
+                    np.pad(a, ((0, 0), (0, target - a.shape[-1])), constant_values=fill)
+                    for a in arrays
+                ]
+            out[k] = np.stack(arrays)
+        return out
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -167,15 +169,16 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     copied into pinned host memory and sent with a ``non_blocking`` copy on
     the current stream, so the transfer overlaps the host's next work (the
     reference's ``pin_memory=True`` loader with ``non_blocking`` copies)."""
-    dev = torch.device(device)
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if k in ("dec_input", "dec_output"):
-            t = t.long()
-        if dev.type == "cuda":
-            t = t.pin_memory().to(dev, non_blocking=True)
-        elif dev.type != "cpu":
-            t = t.to(dev)
-        out[k] = t
-    return out
+    with span("wft.to_device"):
+        dev = torch.device(device)
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if k in ("dec_input", "dec_output"):
+                t = t.long()
+            if dev.type == "cuda":
+                t = t.pin_memory().to(dev, non_blocking=True)
+            elif dev.type != "cpu":
+                t = t.to(dev)
+            out[k] = t
+        return out

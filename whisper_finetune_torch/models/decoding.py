@@ -55,6 +55,7 @@ from whisper_finetune_torch.models.whisper import (
     encoder_forward,
     layer_norm,
 )
+from whisper_finetune_torch.runtime import span
 
 NEG_INF = float("-inf")
 
@@ -296,9 +297,10 @@ class _Decoder:
 
 def _encode(params: Params, mel: torch.Tensor, dims: ModelDimensions, fcfg: ForwardConfig,
             max_len: int) -> _Decoder:
-    eval_fcfg = _eval_fcfg(fcfg)
-    xa = encoder_forward(params, mel, dims, eval_fcfg, train=False).to(eval_fcfg.dtype)
-    return _Decoder(params, dims, eval_fcfg.dtype, xa, max_len)
+    with span("wft.decode.encode"):
+        eval_fcfg = _eval_fcfg(fcfg)
+        xa = encoder_forward(params, mel, dims, eval_fcfg, train=False).to(eval_fcfg.dtype)
+        return _Decoder(params, dims, eval_fcfg.dtype, xa, max_len)
 
 
 def _filter(filters: Optional[DecodeFilters], logits, prev1, prev2, max_ts, n_sampled: int):
@@ -327,8 +329,6 @@ def greedy_decode(params: Params, mel: torch.Tensor, initial_tokens: torch.Tenso
     filters to every step's logits before the choice."""
     B, T0 = initial_tokens.shape
     dec = _encode(params, mel, dims, fcfg, max_len)
-    logits = dec.prefill(initial_tokens)
-    dev = logits.device
 
     def select(lg):
         if temperature > 0:
@@ -339,8 +339,11 @@ def greedy_decode(params: Params, mel: torch.Tensor, initial_tokens: torch.Tenso
         lp = torch.log_softmax(lg, dim=-1).gather(-1, tok[:, None])[:, 0]
         return tok, lp
 
-    zeros = torch.zeros((B,), dtype=torch.long, device=dev)
-    token, tok_lp = select(_filter(filters, logits, zeros, zeros, zeros, 0))
+    with span("wft.decode.prefill"):
+        logits = dec.prefill(initial_tokens)
+        dev = logits.device
+        zeros = torch.zeros((B,), dtype=torch.long, device=dev)
+        token, tok_lp = select(_filter(filters, logits, zeros, zeros, zeros, 0))
     prev_tok, max_ts = zeros, zeros
     finished = torch.zeros((B,), dtype=torch.bool, device=dev)
     lp_sum = torch.zeros((B,), dtype=torch.float32, device=dev)
@@ -348,16 +351,17 @@ def greedy_decode(params: Params, mel: torch.Tensor, initial_tokens: torch.Tenso
     n_gen = max_len - T0
     out = torch.full((B, n_gen), eot, dtype=torch.long, device=dev)
     for i in range(n_gen):
-        token = torch.where(finished, eot, token)
-        out[:, i] = token
-        lp_sum = lp_sum + torch.where(finished, 0.0, tok_lp)
-        count = count + (~finished).long()
-        logits = dec.step(token, T0 + i)
-        max_ts = _update_max_ts(filters, max_ts, token)
-        logits = _filter(filters, logits, token, prev_tok, max_ts, i + 1)
-        nxt, nxt_lp = select(logits)
-        finished = finished | (token == eot)
-        prev_tok, token, tok_lp = token, nxt, nxt_lp
+        with span("wft.decode.token_step"):
+            token = torch.where(finished, eot, token)
+            out[:, i] = token
+            lp_sum = lp_sum + torch.where(finished, 0.0, tok_lp)
+            count = count + (~finished).long()
+            logits = dec.step(token, T0 + i)
+            max_ts = _update_max_ts(filters, max_ts, token)
+            logits = _filter(filters, logits, token, prev_tok, max_ts, i + 1)
+            nxt, nxt_lp = select(logits)
+            finished = finished | (token == eot)
+            prev_tok, token, tok_lp = token, nxt, nxt_lp
     return out, lp_sum / count.clamp(min=1)
 
 
@@ -379,13 +383,14 @@ def beam_decode(params: Params, mel: torch.Tensor, initial_tokens: torch.Tensor,
     K, V = beam_size, dims.n_vocab
     n_gen = max_len - T0
     dec = _encode(params, mel, dims, fcfg, max_len)
-    logits = dec.prefill(initial_tokens)
-    dec.tile(K)
-    dev = logits.device
-
-    zeros_b = torch.zeros((B,), dtype=torch.long, device=dev)
-    logp0 = torch.log_softmax(_filter(filters, logits, zeros_b, zeros_b, zeros_b, 0), dim=-1)
-    scores, cur_tok = torch.topk(logp0, K, dim=-1)  # (B, K)
+    with span("wft.decode.prefill"):
+        logits = dec.prefill(initial_tokens)
+        dec.tile(K)
+        dev = logits.device
+        zeros_b = torch.zeros((B,), dtype=torch.long, device=dev)
+        logp0 = torch.log_softmax(_filter(filters, logits, zeros_b, zeros_b, zeros_b, 0),
+                                  dim=-1)
+        scores, cur_tok = torch.topk(logp0, K, dim=-1)  # (B, K)
     eot_only = torch.full((V,), NEG_INF, dtype=torch.float32, device=dev)
     eot_only[eot] = 0.0
     hist = torch.full((B, K, n_gen), eot, dtype=torch.long, device=dev)
@@ -394,24 +399,25 @@ def beam_decode(params: Params, mel: torch.Tensor, initial_tokens: torch.Tensor,
     max_ts = torch.zeros((B, K), dtype=torch.long, device=dev)
     base = (torch.arange(B, device=dev) * K)[:, None]
     for i in range(n_gen):
-        tok_in = torch.where(finished, eot, cur_tok)
-        hist[:, :, i] = tok_in
-        logits = dec.step(tok_in.reshape(B * K), T0 + i)
-        max_ts = _update_max_ts(filters, max_ts, tok_in)
-        logits = _filter(filters, logits, tok_in.reshape(B * K), prev_tok.reshape(B * K),
-                         max_ts.reshape(B * K), i + 1)
-        logp = torch.log_softmax(logits, dim=-1).view(B, K, V)
-        cand = scores[:, :, None] + torch.where(finished[:, :, None], eot_only, logp)
-        scores, flat = torch.topk(cand.view(B, K * V), K, dim=-1)
-        src = flat // V
-        new_tok = flat % V
-        hist = hist.gather(1, src[:, :, None].expand(B, K, n_gen))
-        finished = finished.gather(1, src)
-        prev_tok = tok_in.gather(1, src)
-        max_ts = max_ts.gather(1, src)
-        dec.reorder((base + src).reshape(B * K))
-        finished = finished | (new_tok == eot)
-        cur_tok = new_tok
+        with span("wft.decode.token_step"):
+            tok_in = torch.where(finished, eot, cur_tok)
+            hist[:, :, i] = tok_in
+            logits = dec.step(tok_in.reshape(B * K), T0 + i)
+            max_ts = _update_max_ts(filters, max_ts, tok_in)
+            logits = _filter(filters, logits, tok_in.reshape(B * K), prev_tok.reshape(B * K),
+                             max_ts.reshape(B * K), i + 1)
+            logp = torch.log_softmax(logits, dim=-1).view(B, K, V)
+            cand = scores[:, :, None] + torch.where(finished[:, :, None], eot_only, logp)
+            scores, flat = torch.topk(cand.view(B, K * V), K, dim=-1)
+            src = flat // V
+            new_tok = flat % V
+            hist = hist.gather(1, src[:, :, None].expand(B, K, n_gen))
+            finished = finished.gather(1, src)
+            prev_tok = tok_in.gather(1, src)
+            max_ts = max_ts.gather(1, src)
+            dec.reorder((base + src).reshape(B * K))
+            finished = finished | (new_tok == eot)
+            cur_tok = new_tok
 
     gen_len = (hist != eot).sum(dim=2)  # (B, K): non-eot tokens
     if length_penalty is None:
@@ -459,7 +465,7 @@ def transcribe_batch(params: Params, dims: ModelDimensions, audio_batch: np.ndar
     fcfg = fcfg or ForwardConfig()
     dev = params["decoder"]["tok_emb"].device
     B = audio_batch.shape[0]
-    with torch.no_grad():
+    with torch.no_grad(), span("wft.decode.featurize"):
         mel = featurize_impl(torch.as_tensor(audio_batch, dtype=torch.float32, device=dev),
                              torch.full((B,), 3000, dtype=torch.int32, device=dev), None,
                              FeaturizeConfig(n_mels=dims.n_mels), train=False)
@@ -500,7 +506,8 @@ def transcribe_batch(params: Params, dims: ModelDimensions, audio_batch: np.ndar
             tokens, avg_lp = greedy_decode(params, mel_r, init_r, tokenizer.eot, dims, fcfg,
                                            max_len=max_len, temperature=float(temp),
                                            generator=gen, filters=filters)
-        tokens, avg_lp = tokens.cpu().numpy(), avg_lp.cpu().numpy()
+        with span("wft.decode.to_host"):
+            tokens, avg_lp = tokens.cpu().numpy(), avg_lp.cpu().numpy()
         last = temp == temperatures[-1]
         for j, i in enumerate(sel[: len(idx)]):  # the rest of sel is padding
             text = decode_text(tokens[j])

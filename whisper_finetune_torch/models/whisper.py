@@ -64,6 +64,7 @@ from whisper_finetune_torch._device import resolve_device
 from whisper_finetune_torch.models.dims import ModelDimensions
 from whisper_finetune_torch.ops.attention import attention
 from whisper_finetune_torch.ops.remat import named, parse_remat_policy
+from whisper_finetune_torch.runtime import span
 
 Params = Dict[str, Any]
 
@@ -449,33 +450,35 @@ def _encoder_block(x: torch.Tensor, bp: Params, fcfg: ForwardConfig, n_head: int
     """``time_keep`` (T,) and ``feat_keep`` (d,) are this layer's deep
     SpecAugment keep-vectors (batch-shared), None where it is off;
     ``lora_keep`` its LoRA dropout keep-vector, None without dropout."""
-    dtype = fcfg.dtype
-    bp = _with_lora(bp, fcfg, lora_keep)
-    if time_keep is None:
-        x_ln = layer_norm(x, bp["attn_ln"], name="enc_ln1")
-    else:
-        x_ln = layer_norm(x, bp["attn_ln"]) * time_keep[None, :, None]
-        x_ln = named("enc_ln1", torch.mul, x_ln, feat_keep[None, None, :])
-    x = x + multi_head_attention(x_ln, x_ln, bp["attn"], n_head, dtype,
-                                 impl=fcfg.enc_attn, site="enc")
-    x_ln2 = layer_norm(x, bp["mlp_ln"], name="enc_ln2")
-    return x + _mlp(x_ln2, bp["mlp"], dtype, site="enc")
+    with span("wft.enc_block"):
+        dtype = fcfg.dtype
+        bp = _with_lora(bp, fcfg, lora_keep)
+        if time_keep is None:
+            x_ln = layer_norm(x, bp["attn_ln"], name="enc_ln1")
+        else:
+            x_ln = layer_norm(x, bp["attn_ln"]) * time_keep[None, :, None]
+            x_ln = named("enc_ln1", torch.mul, x_ln, feat_keep[None, None, :])
+        x = x + multi_head_attention(x_ln, x_ln, bp["attn"], n_head, dtype,
+                                     impl=fcfg.enc_attn, site="enc")
+        x_ln2 = layer_norm(x, bp["mlp_ln"], name="enc_ln2")
+        return x + _mlp(x_ln2, bp["mlp"], dtype, site="enc")
 
 
 def _decoder_block(x: torch.Tensor, bp: Params, xa: torch.Tensor,
                    fcfg: ForwardConfig, n_head: int,
                    lora_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-    dtype = fcfg.dtype
-    bp = _with_lora(bp, fcfg, lora_keep)
-    x_ln = layer_norm(x, bp["attn_ln"], name="dec_ln1")
-    x = x + multi_head_attention(x_ln, x_ln, bp["attn"], n_head, dtype,
-                                 causal=True, impl=fcfg.dec_attn, site="dec")
-    x_lnc = layer_norm(x, bp["cross_attn_ln"], name="dec_ln_cross")
-    x = x + multi_head_attention(x_lnc, xa, bp["cross_attn"], n_head, dtype,
-                                 impl=fcfg.cross_attn, probs_name="cross_attn_probs",
-                                 site="cross")
-    x_ln2 = layer_norm(x, bp["mlp_ln"], name="dec_ln2")
-    return x + _mlp(x_ln2, bp["mlp"], dtype, site="dec")
+    with span("wft.dec_block"):
+        dtype = fcfg.dtype
+        bp = _with_lora(bp, fcfg, lora_keep)
+        x_ln = layer_norm(x, bp["attn_ln"], name="dec_ln1")
+        x = x + multi_head_attention(x_ln, x_ln, bp["attn"], n_head, dtype,
+                                     causal=True, impl=fcfg.dec_attn, site="dec")
+        x_lnc = layer_norm(x, bp["cross_attn_ln"], name="dec_ln_cross")
+        x = x + multi_head_attention(x_lnc, xa, bp["cross_attn"], n_head, dtype,
+                                     impl=fcfg.cross_attn, probs_name="cross_attn_probs",
+                                     site="cross")
+        x_ln2 = layer_norm(x, bp["mlp_ln"], name="dec_ln2")
+        return x + _mlp(x_ln2, bp["mlp"], dtype, site="dec")
 
 
 def _layer_views(blocks: Params, n_layers: int, dtype: torch.dtype,
@@ -625,26 +628,27 @@ def encoder_forward(params: Params, mel: torch.Tensor, dims: ModelDimensions,
     fcfg.check_supported(dims.n_audio_layer, decoder=False)
     enc = params["encoder"]
     dtype, L = fcfg.dtype, dims.n_audio_layer
-    x = conv_stem(enc, mel, dims, dtype)
-    draws = _training_draws(fcfg, dims, train, draws, generator, x.device)
+    with span("wft.encoder"):
+        x = conv_stem(enc, mel, dims, dtype)
+        draws = _training_draws(fcfg, dims, train, draws, generator, x.device)
 
-    kept = _kept(draws.enc_coin if draws else None, fcfg.sd_encoder, L)
-    dsa_on, time_keep, feat_keep = dsa_masks(fcfg, draws, L, x)
-    lora_keep = _lora_keep(fcfg, draws, "enc_lora", x.device)
-    block = _stochastic(_encoder_block, 1.0 - fcfg.sd_encoder if draws else 1.0)
-    run = _remat(fcfg)
+        kept = _kept(draws.enc_coin if draws else None, fcfg.sd_encoder, L)
+        dsa_on, time_keep, feat_keep = dsa_masks(fcfg, draws, L, x)
+        lora_keep = _lora_keep(fcfg, draws, "enc_lora", x.device)
+        block = _stochastic(_encoder_block, 1.0 - fcfg.sd_encoder if draws else 1.0)
+        run = _remat(fcfg)
 
-    last_only = fcfg.remat_encoder_last_only and not fcfg.remat_encoder and L > 1
-    views = _layer_views(enc["blocks"], L, dtype, _precast(fcfg))
-    for i, bp in enumerate(views):
-        if not kept[i]:
-            continue
-        encoder_forward.blocks_run += 1
-        masks = (time_keep[i], feat_keep[i]) if dsa_on[i] else (None, None)
-        remat = fcfg.remat_encoder or (last_only and i == L - 1)
-        x = run(block, remat, x, bp, fcfg, dims.n_audio_head, *masks,
-                None if lora_keep is None else lora_keep[i])
-    return layer_norm(x, enc["ln_post"]).float()
+        last_only = fcfg.remat_encoder_last_only and not fcfg.remat_encoder and L > 1
+        views = _layer_views(enc["blocks"], L, dtype, _precast(fcfg))
+        for i, bp in enumerate(views):
+            if not kept[i]:
+                continue
+            encoder_forward.blocks_run += 1
+            masks = (time_keep[i], feat_keep[i]) if dsa_on[i] else (None, None)
+            remat = fcfg.remat_encoder or (last_only and i == L - 1)
+            x = run(block, remat, x, bp, fcfg, dims.n_audio_head, *masks,
+                    None if lora_keep is None else lora_keep[i])
+        return layer_norm(x, enc["ln_post"]).float()
 
 
 def decoder_forward(params: Params, tokens: torch.Tensor, xa: torch.Tensor,
@@ -655,20 +659,22 @@ def decoder_forward(params: Params, tokens: torch.Tensor, xa: torch.Tensor,
     fcfg.check_supported()
     dec = params["decoder"]
     dtype, L = fcfg.dtype, dims.n_text_layer
-    x = decoder_embed(dec, tokens, dtype)
-    xa = xa.to(dtype)
-    draws = _training_draws(fcfg, dims, train, draws, generator, x.device)
-    kept = _kept(draws.dec_coin if draws else None, fcfg.sd_decoder, L)
-    lora_keep = _lora_keep(fcfg, draws, "dec_lora", x.device)
-    block = _stochastic(_decoder_block, 1.0 - fcfg.sd_decoder if draws else 1.0)
-    run = _remat(fcfg)
-    for i, bp in enumerate(_layer_views(dec["blocks"], L, dtype, _precast(fcfg))):
-        if not kept[i]:
-            continue
-        decoder_forward.blocks_run += 1
-        x = run(block, fcfg.remat_decoder, x, bp, xa, fcfg, dims.n_text_head,
-                None if lora_keep is None else lora_keep[i])
-    return decoder_head(dec, x, dtype)
+    with span("wft.decoder"):
+        x = decoder_embed(dec, tokens, dtype)
+        xa = xa.to(dtype)
+        draws = _training_draws(fcfg, dims, train, draws, generator, x.device)
+        kept = _kept(draws.dec_coin if draws else None, fcfg.sd_decoder, L)
+        lora_keep = _lora_keep(fcfg, draws, "dec_lora", x.device)
+        block = _stochastic(_decoder_block, 1.0 - fcfg.sd_decoder if draws else 1.0)
+        run = _remat(fcfg)
+        for i, bp in enumerate(_layer_views(dec["blocks"], L, dtype, _precast(fcfg))):
+            if not kept[i]:
+                continue
+            decoder_forward.blocks_run += 1
+            x = run(block, fcfg.remat_decoder, x, bp, xa, fcfg, dims.n_text_head,
+                    None if lora_keep is None else lora_keep[i])
+    with span("wft.loss"):  # the logits are the loss's input
+        return decoder_head(dec, x, dtype)
 
 
 def decoder_head(dec: Params, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -73,6 +73,7 @@ from typing import Optional, Tuple
 import torch
 
 from whisper_finetune_torch.ops.remat import named
+from whisper_finetune_torch.runtime import span
 
 HEAD_DIM = 64  # the kernels' head width (every Whisper preset uses 64)
 
@@ -313,8 +314,9 @@ class _KernelAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = attn_bwd(q, k, v, o, do, lse, ctx.causal, ctx.sm_scale)
+        with span("wft.attn"):
+            q, k, v, o, lse = ctx.saved_tensors
+            dq, dk, dv = attn_bwd(q, k, v, o, do, lse, ctx.causal, ctx.sm_scale)
         return dq, dk, dv, None, None
 
 
@@ -334,10 +336,11 @@ class _KernelForwardPlainBackward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
-        with torch.enable_grad():
-            o = xla_mha(q, k, v, causal=ctx.causal, sm_scale=ctx.sm_scale)
-        dq, dk, dv = torch.autograd.grad(o, (q, k, v), do.to(o.dtype))
+        with span("wft.attn"):
+            q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+            with torch.enable_grad():
+                o = xla_mha(q, k, v, causal=ctx.causal, sm_scale=ctx.sm_scale)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), do.to(o.dtype))
         return dq, dk, dv, None, None
 
 
@@ -397,13 +400,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False, sm_scale: float = 1.0,
               impl: str = "xla", probs_name: str = "attn_probs") -> torch.Tensor:
     """``probs_name``: the remat site of the plain path's probabilities (the
-    kernels never materialise them)."""
-    if impl == "xla":
-        return xla_mha(q, k, v, causal=causal, sm_scale=sm_scale, probs_name=probs_name)
-    if impl == "splash":
-        return splash_mha(q, k, v, causal=causal, sm_scale=sm_scale)
-    if impl == "flash":
-        return flash_mha(q, k, v, causal=causal, sm_scale=sm_scale)
-    if impl == "flash_fwd":
-        return flash_fwd_xla_bwd(q, k, v, causal=causal, sm_scale=sm_scale)
+    kernels never materialise them). Every implementation runs inside the
+    span ``wft.attn``, as do the kernels' backwards."""
+    with span("wft.attn"):
+        if impl == "xla":
+            return xla_mha(q, k, v, causal=causal, sm_scale=sm_scale, probs_name=probs_name)
+        if impl == "splash":
+            return splash_mha(q, k, v, causal=causal, sm_scale=sm_scale)
+        if impl == "flash":
+            return flash_mha(q, k, v, causal=causal, sm_scale=sm_scale)
+        if impl == "flash_fwd":
+            return flash_fwd_xla_bwd(q, k, v, causal=causal, sm_scale=sm_scale)
     raise ValueError(f"Unknown attention impl: {impl}")

@@ -19,18 +19,26 @@ The same module-global facade as the JAX package (and the reference's
   then), and always to ``metrics.jsonl`` in the run directory, with the
   same records as the JAX package: ``_step``, ``_time`` and the values,
   histogram records (``{"_type": "histogram", "counts", "edges"}``) as
-  they are. Only rank 0 logs.
+  they are. Only rank 0 logs;
+* :func:`span` marks a layer boundary (``wft.encoder``, ``wft.loss``, ...):
+  a ``torch.profiler`` range while a profiler runs, and host wall time in
+  the table of :func:`timed` while one is open. With neither, it does
+  nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import threading
 import time
 from datetime import timedelta
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Iterator, List, Optional, Union
 
 import torch
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
 
 RANK = 0
 WORLD_SIZE = 1
@@ -205,3 +213,67 @@ def finish_wandb() -> None:
         _wandb.finish()
         _wandb = None
     _close_metrics()
+
+
+# ---------------------------------------------------------------------------
+# Spans: the program's layer boundaries, for the profiler and the span clock.
+# ---------------------------------------------------------------------------
+
+_clock: Optional[Dict[str, List]] = None  # {name: [count, seconds]} while timed() is open
+_clock_lock = threading.Lock()  # spans also close on the autograd engine's thread
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "range", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = None
+        self.t0 = 0
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self.range = record_function(self.name)
+            self.range.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self.t0
+        table = _clock
+        if table is not None:
+            with _clock_lock:
+                entry = table.setdefault(self.name, [0, 0.0])
+                entry[0] += 1
+                entry[1] += dt / 1e9
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """``with span("wft.loss"):`` marks the block as the layer ``name``.
+    While a ``torch.profiler`` runs it is a ``record_function`` range, on the
+    same timeline as the card's kernels; while :func:`timed` is open its host
+    wall time adds to that table. Otherwise it costs a flag check and
+    ``torch.autograd._profiler_enabled()``, and enters no range."""
+    if _clock is None and not _profiler_enabled():
+        return _OFF
+    return _Span(name)
+
+
+@contextlib.contextmanager
+def timed() -> Iterator[Dict[str, List]]:
+    """Turns the span clock on for the block and yields its table,
+    ``{span name: [count, seconds]}``: every span that closes inside the
+    block, on any thread, adds its count and host wall time
+    (``time.perf_counter_ns``). An outer ``timed`` block's table gets
+    nothing while an inner one is open."""
+    global _clock
+    outer, table = _clock, {}
+    _clock = table
+    try:
+        yield table
+    finally:
+        _clock = outer

@@ -241,7 +241,8 @@ def main_loop(state: TrainState, step_fn, train_stream, accum_local: int, dev_lo
 
     # WFT_PROFILE_DIR: a torch.profiler trace (host and card) of steps 3-8
     # (to the last step of a shorter run), written as a Chrome trace for
-    # Perfetto / chrome://tracing.
+    # Perfetto / chrome://tracing; the program's ``wft.*`` spans are ranges
+    # on its timeline.
     profile_dir = os.environ.get("WFT_PROFILE_DIR")
     profiler = None
 
@@ -249,8 +250,9 @@ def main_loop(state: TrainState, step_fn, train_stream, accum_local: int, dev_lo
     val_steps = t_config["val_steps"]
 
     def next_device_batch():
-        micro = [next(train_stream) for _ in range(accum_local)]
-        return to_device(stack_microbatches(micro), device)
+        with rt.span("wft.host_batch"):
+            micro = [next(train_stream) for _ in range(accum_local)]
+            return to_device(stack_microbatches(micro), device)
 
     start_step = int(state.step)
     if start_step >= train_steps:
@@ -276,14 +278,15 @@ def main_loop(state: TrainState, step_fn, train_stream, accum_local: int, dev_lo
             profiler.start()
         state, loss, ghists = step_fn(state, batch, generator)
         # The step's kernels are queued on the card: build and send the next
-        # batch meanwhile, then sync on the loss. The build is timed apart
-        # (perf/host_batch_build_s): the host starves the card when it
-        # approaches perf/step_time_s.
+        # batch meanwhile, then sync on the loss. The build is timed apart by
+        # the span clock (perf/host_batch_build_s, the ``wft.host_batch``
+        # span): the host starves the card when it approaches
+        # perf/step_time_s.
         host_build_s = 0.0
         if step < train_steps:
-            t_build = time.time()
-            batch = next_device_batch()
-            host_build_s = time.time() - t_build
+            with rt.timed() as clock:
+                batch = next_device_batch()
+            host_build_s = clock["wft.host_batch"][1]
         train_loss = float(loss)
 
         if profiler is not None and step == min(8, train_steps):

@@ -61,12 +61,16 @@ from whisper_finetune_torch.models.whisper import (
     flatten,
     layer_norm,
 )
+from whisper_finetune_torch.runtime import span
 
 
-def _add(buf: torch.Tensor, g: Optional[torch.Tensor]) -> None:
-    """``buf += g`` in the accumulator's dtype (a leaf no path used: no-op)."""
-    if g is not None:
-        buf.add_(g.to(buf.dtype))
+def _add(bufs: Sequence[torch.Tensor], grads: Sequence[Optional[torch.Tensor]]) -> None:
+    """``buf += g`` for each pair, in the accumulator's dtype (a leaf no path
+    used: no-op), inside the span ``wft.grad_reduce``."""
+    with span("wft.grad_reduce"):
+        for buf, g in zip(bufs, grads):
+            if g is not None:
+                buf.add_(g.to(buf.dtype))
 
 
 def make_manual_accumulator(dims: ModelDimensions, fcfg: ForwardConfig,
@@ -120,102 +124,106 @@ def make_manual_accumulator(dims: ModelDimensions, fcfg: ForwardConfig,
             if feat_cfg is not None:
                 from whisper_finetune_torch.ops.spec_augment import featurize_impl
 
-                mel = featurize_impl(mb["audio"], mb["crop_frames"], generator, feat_cfg,
-                                     train=True)
+                with span("wft.features"):
+                    mel = featurize_impl(mb["audio"], mb["crop_frames"], generator, feat_cfg,
+                                         train=True)
             else:
                 mel = mb["mel"]
 
             # ===== forward: keep each kept layer's input =====
-            x = conv_stem(enc, mel, dims, dtype)
-            kept_e = _kept(draws.enc_coin if draws else None, fcfg.sd_encoder, Le)
-            dsa_on, time_keep, feat_keep = dsa_masks(fcfg, draws, Le, x)
-            enc_block = _stochastic(_encoder_block, 1.0 - fcfg.sd_encoder if draws else 1.0)
-            enc_views = _layer_views(enc["blocks"], Le, dtype, precast)
-            enc_masks = [(time_keep[i], feat_keep[i]) if dsa_on[i] else (None, None)
-                         for i in range(Le)]
-            enc_inputs: List[Optional[torch.Tensor]] = [None] * Le
-            for i in range(Le):
-                if kept_e[i]:
-                    encoder_forward.blocks_run += 1
-                    enc_inputs[i] = x
-                    x = enc_block(x, enc_views[i], fcfg, nh_e, *enc_masks[i], None)
-            x_enc = x
-            xa = layer_norm(x_enc, enc["ln_post"]).float().to(dtype)
+            with span("wft.encoder"):
+                x = conv_stem(enc, mel, dims, dtype)
+                kept_e = _kept(draws.enc_coin if draws else None, fcfg.sd_encoder, Le)
+                dsa_on, time_keep, feat_keep = dsa_masks(fcfg, draws, Le, x)
+                enc_block = _stochastic(_encoder_block,
+                                        1.0 - fcfg.sd_encoder if draws else 1.0)
+                enc_views = _layer_views(enc["blocks"], Le, dtype, precast)
+                enc_masks = [(time_keep[i], feat_keep[i]) if dsa_on[i] else (None, None)
+                             for i in range(Le)]
+                enc_inputs: List[Optional[torch.Tensor]] = [None] * Le
+                for i in range(Le):
+                    if kept_e[i]:
+                        encoder_forward.blocks_run += 1
+                        enc_inputs[i] = x
+                        x = enc_block(x, enc_views[i], fcfg, nh_e, *enc_masks[i], None)
+                x_enc = x
+                xa = layer_norm(x_enc, enc["ln_post"]).float().to(dtype)
 
-            x = decoder_embed(dec, mb["dec_input"], dtype)
-            kept_d = _kept(draws.dec_coin if draws else None, fcfg.sd_decoder, Ld)
-            dec_block = _stochastic(_decoder_block, 1.0 - fcfg.sd_decoder if draws else 1.0)
-            dec_views = _layer_views(dec["blocks"], Ld, dtype, precast)
-            dec_inputs: List[Optional[torch.Tensor]] = [None] * Ld
-            for i in range(Ld):
-                if kept_d[i]:
-                    decoder_forward.blocks_run += 1
-                    dec_inputs[i] = x
-                    x = dec_block(x, dec_views[i], xa, fcfg, nh_d, None)
-            x_dec = x
+            with span("wft.decoder"):
+                x = decoder_embed(dec, mb["dec_input"], dtype)
+                kept_d = _kept(draws.dec_coin if draws else None, fcfg.sd_decoder, Ld)
+                dec_block = _stochastic(_decoder_block,
+                                        1.0 - fcfg.sd_decoder if draws else 1.0)
+                dec_views = _layer_views(dec["blocks"], Ld, dtype, precast)
+                dec_inputs: List[Optional[torch.Tensor]] = [None] * Ld
+                for i in range(Ld):
+                    if kept_d[i]:
+                        decoder_forward.blocks_run += 1
+                        dec_inputs[i] = x
+                        x = dec_block(x, dec_views[i], xa, fcfg, nh_d, None)
+                x_dec = x
 
         # ===== backward =====
-        # Head + loss seed dx; tok_emb's head contribution waits for its
-        # gather contribution (both float32) before the cast.
-        x_dec.requires_grad_()
-        ln = dec["ln"]
-        with torch.enable_grad():
-            loss = loss_fn(decoder_head(dec, x_dec, dtype), mb["dec_output"])
-        d_ln_s, d_ln_b, d_tok_head, dx = torch.autograd.grad(
-            loss, [ln["scale"], ln["bias"], dec["tok_emb"], x_dec])
-        _add(bdec["ln"]["scale"], d_ln_s)
-        _add(bdec["ln"]["bias"], d_ln_b)
+        with span("wft.backward"):
+            # Head + loss seed dx; tok_emb's head contribution waits for its
+            # gather contribution (both float32) before the cast.
+            x_dec.requires_grad_()
+            ln = dec["ln"]
+            with span("wft.loss"):
+                with torch.enable_grad():
+                    loss = loss_fn(decoder_head(dec, x_dec, dtype), mb["dec_output"])
+                d_ln_s, d_ln_b, d_tok_head, dx = torch.autograd.grad(
+                    loss, [ln["scale"], ln["bias"], dec["tok_emb"], x_dec])
+            _add([bdec["ln"]["scale"], bdec["ln"]["bias"]], [d_ln_s, d_ln_b])
 
-        # Decoder layers in reverse: each layer's weight gradients into its
-        # slice of the stacked buffer; the cross-attention cotangents summed.
-        xa_in = xa.detach().requires_grad_()
-        dxa = torch.zeros_like(xa)
-        dec_buf = dict(flatten(bdec["blocks"]))
-        for i in reversed(range(Ld)):
-            if not kept_d[i]:
-                continue  # identity: dx passes through, the slice gets nothing
-            dx, dws, dxa_i = replay(dec_block, dec_inputs[i], dec_views[i], dx, fcfg, nh_d,
-                                    None, xa=xa_in)
-            dec_inputs[i] = None
-            for path, g in dws:
-                _add(dec_buf[path][i], g)
-            if dxa_i is not None:
-                dxa.add_(dxa_i)
+            # Decoder layers in reverse: each layer's weight gradients into
+            # its slice of the stacked buffer; the cross-attention cotangents
+            # summed.
+            xa_in = xa.detach().requires_grad_()
+            dxa = torch.zeros_like(xa)
+            dec_buf = dict(flatten(bdec["blocks"]))
+            for i in reversed(range(Ld)):
+                if not kept_d[i]:
+                    continue  # identity: dx passes through, the slice gets nothing
+                dx, dws, dxa_i = replay(dec_block, dec_inputs[i], dec_views[i], dx, fcfg,
+                                        nh_d, None, xa=xa_in)
+                dec_inputs[i] = None
+                _add([dec_buf[path][i] for path, _ in dws], [g for _, g in dws])
+                if dxa_i is not None:
+                    dxa.add_(dxa_i)
 
-        tok, pos = dec["tok_emb"], dec["pos_emb"]
-        with torch.enable_grad():
-            xd0 = decoder_embed({"tok_emb": tok, "pos_emb": pos}, mb["dec_input"], dtype)
-        d_tok_gather, d_pos = torch.autograd.grad(xd0, [tok, pos], dx)
-        _add(bdec["tok_emb"], d_tok_head + d_tok_gather)
-        _add(bdec["pos_emb"], d_pos)
-        del d_tok_head, d_tok_gather
+            tok, pos = dec["tok_emb"], dec["pos_emb"]
+            with torch.enable_grad():
+                xd0 = decoder_embed({"tok_emb": tok, "pos_emb": pos}, mb["dec_input"], dtype)
+            d_tok_gather, d_pos = torch.autograd.grad(xd0, [tok, pos], dx)
+            _add([bdec["tok_emb"], bdec["pos_emb"]], [d_tok_head + d_tok_gather, d_pos])
+            del d_tok_head, d_tok_gather
 
-        # Encoder head, then the encoder layers in reverse.
-        x_enc.requires_grad_()
-        lnp = enc["ln_post"]
-        with torch.enable_grad():
-            xa_re = layer_norm(x_enc, lnp).float().to(dtype)
-        d_lp_s, d_lp_b, dx = torch.autograd.grad(xa_re, [lnp["scale"], lnp["bias"], x_enc], dxa)
-        _add(benc["ln_post"]["scale"], d_lp_s)
-        _add(benc["ln_post"]["bias"], d_lp_b)
-        enc_buf = dict(flatten(benc["blocks"]))
-        for i in reversed(range(Le)):
-            if not kept_e[i]:
-                continue
-            dx, dws, _ = replay(enc_block, enc_inputs[i], enc_views[i], dx, fcfg, nh_e,
-                                *enc_masks[i], None)
-            enc_inputs[i] = None
-            for path, g in dws:
-                _add(enc_buf[path][i], g)
+            # Encoder head, then the encoder layers in reverse.
+            x_enc.requires_grad_()
+            lnp = enc["ln_post"]
+            with torch.enable_grad():
+                xa_re = layer_norm(x_enc, lnp).float().to(dtype)
+            d_lp_s, d_lp_b, dx = torch.autograd.grad(xa_re, [lnp["scale"], lnp["bias"], x_enc],
+                                                     dxa)
+            _add([benc["ln_post"]["scale"], benc["ln_post"]["bias"]], [d_lp_s, d_lp_b])
+            enc_buf = dict(flatten(benc["blocks"]))
+            for i in reversed(range(Le)):
+                if not kept_e[i]:
+                    continue
+                dx, dws, _ = replay(enc_block, enc_inputs[i], enc_views[i], dx, fcfg, nh_e,
+                                    *enc_masks[i], None)
+                enc_inputs[i] = None
+                _add([enc_buf[path][i] for path, _ in dws], [g for _, g in dws])
 
-        # The stem, replayed (its activations were not kept).
-        convs = [enc["conv1"]["w"], enc["conv1"]["b"], enc["conv2"]["w"], enc["conv2"]["b"]]
-        with torch.enable_grad():
-            x0 = conv_stem(enc, mel, dims, dtype)
-        for b, g in zip([benc["conv1"]["w"], benc["conv1"]["b"], benc["conv2"]["w"],
-                         benc["conv2"]["b"]], torch.autograd.grad(x0, convs, dx)):
-            _add(b, g)
-        return loss.detach()
+            # The stem, replayed (its activations were not kept).
+            convs = [enc["conv1"]["w"], enc["conv1"]["b"], enc["conv2"]["w"],
+                     enc["conv2"]["b"]]
+            with torch.enable_grad():
+                x0 = conv_stem(enc, mel, dims, dtype)
+            _add([benc["conv1"]["w"], benc["conv1"]["b"], benc["conv2"]["w"],
+                  benc["conv2"]["b"]], torch.autograd.grad(x0, convs, dx))
+            return loss.detach()
 
     def accumulate(params: Params, batch: Dict[str, torch.Tensor], generator,
                    grad_buf: Params, draws: Optional[Sequence[ForwardDraws]] = None):

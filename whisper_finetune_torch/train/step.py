@@ -71,6 +71,7 @@ from whisper_finetune_torch.models.whisper import (
     forward_impl,
 )
 from whisper_finetune_torch.optim.quantized import _div
+from whisper_finetune_torch.runtime import span
 from whisper_finetune_torch.train.zero import zero_opt_partition
 
 IGNORE_INDEX = -100
@@ -156,13 +157,14 @@ class _CrossEntropy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        logits, safe, mask, lse, count = ctx.saved_tensors
-        ls = ctx.label_smoothing
-        coeff = (g * mask.float() / count)[..., None]
-        dl = torch.exp(logits.float() - lse[..., None])
-        dl.sub_(ls / logits.shape[-1]).mul_(coeff)
-        dl.scatter_add_(-1, safe[..., None], -(1.0 - ls) * coeff)
-        return dl.to(logits.dtype), None, None
+        with span("wft.loss"):
+            logits, safe, mask, lse, count = ctx.saved_tensors
+            ls = ctx.label_smoothing
+            coeff = (g * mask.float() / count)[..., None]
+            dl = torch.exp(logits.float() - lse[..., None])
+            dl.sub_(ls / logits.shape[-1]).mul_(coeff)
+            dl.scatter_add_(-1, safe[..., None], -(1.0 - ls) * coeff)
+            return dl.to(logits.dtype), None, None
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -301,13 +303,15 @@ def make_train_step(
         if feat_cfg is not None:
             from whisper_finetune_torch.ops.spec_augment import featurize_impl
 
-            mel = featurize_impl(mb["audio"], mb["crop_frames"], generator,
-                                 feat_cfg, train=True)
+            with span("wft.features"):
+                mel = featurize_impl(mb["audio"], mb["crop_frames"], generator,
+                                     feat_cfg, train=True)
         else:
             mel = mb["mel"]
         logits = forward_impl(params, mel, mb["dec_input"], dims, fcfg, train=True,
                               draws=draws)
-        return cross_entropy_loss(logits, mb["dec_output"], label_smoothing)
+        with span("wft.loss"):
+            return cross_entropy_loss(logits, mb["dec_output"], label_smoothing)
 
     manual_acc = None
     if manual_backward:
@@ -334,19 +338,21 @@ def make_train_step(
             loss = loss_fn(params, {k: batch[k][i] for k in data_keys}, generator, draws[i])
             # A leaf no kept layer used (stochastic depth dropped them all)
             # has no gradient: zeros, as in JAX.
-            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
-            if grad_sum is not None:
-                for j, a in enumerate(grad_sum):
-                    g, grads[j] = grads[j], None  # each float32 gradient freed once added
-                    if g is not None:
-                        a.add_(g.to(acc_dt) if acc_dt else g)
-            else:
-                for j, g in enumerate(grads):
-                    if g is None:
-                        grads[j] = torch.zeros_like(leaves[j], dtype=acc_dt)
-                    else:
-                        grads[j] = g.to(acc_dt) if acc_dt else g  # frees the fp32 copy
-                grad_sum = grads
+            with span("wft.backward"):
+                grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+            with span("wft.grad_reduce"):
+                if grad_sum is not None:
+                    for j, a in enumerate(grad_sum):
+                        g, grads[j] = grads[j], None  # each float32 gradient freed once added
+                        if g is not None:
+                            a.add_(g.to(acc_dt) if acc_dt else g)
+                else:
+                    for j, g in enumerate(grads):
+                        if g is None:
+                            grads[j] = torch.zeros_like(leaves[j], dtype=acc_dt)
+                        else:
+                            grads[j] = g.to(acc_dt) if acc_dt else g  # frees the fp32 copy
+                    grad_sum = grads
             del grads
             loss_sum = loss_sum + loss.detach()
         return grad_sum, accum, loss_sum / accum
@@ -355,15 +361,16 @@ def make_train_step(
         """The cross-rank sum of the gradient sums, in place and in the
         accumulator dtype, and the float32 scalar that turns them into
         clipped means."""
-        for g in grad_sum:
-            parallel.all_reduce(g)
-        dev = grad_sum[0].device
-        scale = torch.tensor(1.0 / (accum * n), dtype=torch.float32, device=dev)
-        if max_grad_norm is None:
-            return scale
-        sq = sum(torch.sum(torch.square(g.float())) for g in grad_sum)
-        gnorm = torch.sqrt(sq) * scale
-        return scale * clip_factor(gnorm)
+        with span("wft.grad_reduce"):
+            for g in grad_sum:
+                parallel.all_reduce(g)
+            dev = grad_sum[0].device
+            scale = torch.tensor(1.0 / (accum * n), dtype=torch.float32, device=dev)
+            if max_grad_norm is None:
+                return scale
+            sq = sum(torch.sum(torch.square(g.float())) for g in grad_sum)
+            gnorm = torch.sqrt(sq) * scale
+            return scale * clip_factor(gnorm)
 
     def clip_factor(gnorm):
         limit = torch.tensor(max_grad_norm, dtype=torch.float32, device=gnorm.device)
@@ -376,12 +383,13 @@ def make_train_step(
         and then float32 as JAX casts it; ``grad_sum`` is emptied as it
         goes, so the whole sums are freed leaf by leaf."""
         out = []
-        for j, f in enumerate(flags):
-            g, grad_sum[j] = grad_sum[j], None
-            if accum > 1:
-                g = _div(g, accum)
-            g = _div(parallel.reduce_scatter_rows(g) if f else parallel.all_reduce(g), n)
-            out.append(g.float() if acc_dt else g)
+        with span("wft.grad_reduce"):
+            for j, f in enumerate(flags):
+                g, grad_sum[j] = grad_sum[j], None
+                if accum > 1:
+                    g = _div(g, accum)
+                g = _div(parallel.reduce_scatter_rows(g) if f else parallel.all_reduce(g), n)
+                out.append(g.float() if acc_dt else g)
         return out
 
     def want_hists(state) -> bool:
@@ -392,9 +400,10 @@ def make_train_step(
         same, the ranges scaled as JAX scales them (float32 ranges times
         float32(1 / denominator))."""
         scale = 1.0 / denominator
-        return {name: (c, lo * scale, hi * scale) for name, (c, lo, hi) in
-                grad_histograms([(path, g) for (path, _), g in zip(named, grad_sum)],
-                                grad_hist_bins).items()}
+        with span("wft.grad_reduce"):
+            return {name: (c, lo * scale, hi * scale) for name, (c, lo, hi) in
+                    grad_histograms([(path, g) for (path, _), g in zip(named, grad_sum)],
+                                    grad_hist_bins).items()}
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
@@ -409,33 +418,36 @@ def make_train_step(
         if zero_shard and n > 1:
             flags = zero_opt_partition(tx, state.opt_state, leaves, n)
             grads = reduce_to_shards(grad_sum, accum, n, flags)
-            if want_hists(state):
-                hists = grad_histograms([(path, g) for (path, _), g in zip(named, grads)],
-                                        grad_hist_bins, flags)
-            g_scale = None
-            if max_grad_norm is not None:
-                # The global norm from the shards: shard squares summed over
-                # the ranks, whole leaves' squares counted once.
-                sq_shard = sq_whole = torch.zeros((), dtype=torch.float32,
-                                                  device=leaves[0].device)
-                for g, f in zip(grads, flags):
-                    sq = torch.sum(torch.square(g.float()))
-                    if f:
-                        sq_shard = sq_shard + sq
-                    else:
-                        sq_whole = sq_whole + sq
-                g_scale = clip_factor(torch.sqrt(parallel.all_reduce(sq_shard) + sq_whole))
+            with span("wft.grad_reduce"):
+                if want_hists(state):
+                    hists = grad_histograms([(path, g) for (path, _), g in zip(named, grads)],
+                                            grad_hist_bins, flags)
+                g_scale = None
+                if max_grad_norm is not None:
+                    # The global norm from the shards: shard squares summed
+                    # over the ranks, whole leaves' squares counted once.
+                    sq_shard = sq_whole = torch.zeros((), dtype=torch.float32,
+                                                      device=leaves[0].device)
+                    for g, f in zip(grads, flags):
+                        sq = torch.sum(torch.square(g.float()))
+                        if f:
+                            sq_shard = sq_shard + sq
+                        else:
+                            sq_whole = sq_whole + sq
+                    g_scale = clip_factor(torch.sqrt(parallel.all_reduce(sq_shard) + sq_whole))
             params = [parallel.shard_rows(p) if f else p for p, f in zip(leaves, flags)]
-            opt_state = tx.fused_apply(grads, state.opt_state, params, g_scale=g_scale)
-            with torch.no_grad():
-                for p, shard, f in zip(leaves, params, flags):
-                    if f:
-                        parallel.all_gather_rows(shard, out=p)
+            with span("wft.update"):
+                opt_state = tx.fused_apply(grads, state.opt_state, params, g_scale=g_scale)
+                with torch.no_grad():
+                    for p, shard, f in zip(leaves, params, flags):
+                        if f:
+                            parallel.all_gather_rows(shard, out=p)
         else:
             g_scale = reduce_sums(grad_sum, accum, n)
             if want_hists(state):
                 hists = mean_histograms(named, grad_sum, accum * n)
-            opt_state = tx.fused_apply(grad_sum, state.opt_state, leaves, g_scale=g_scale)
+            with span("wft.update"):
+                opt_state = tx.fused_apply(grad_sum, state.opt_state, leaves, g_scale=g_scale)
         new_state = TrainState(state.model, opt_state, state.step + 1)
         if grad_hist_every:
             if hists is None:
@@ -491,11 +503,14 @@ def make_train_step(
             n = parallel.world()
             loss = _div(parallel.all_reduce(loss), n)
             g_scale = reduce_sums(buf, accum, n)
-            loss.item()  # retires the accumulation before the update starts
+            with span("wft.sync"):
+                loss.item()  # retires the accumulation before the update starts
             t1 = time.perf_counter()
-            opt_state = tx.fused_apply(buf, state.opt_state, leaves, g_scale=g_scale)
+            with span("wft.update"):
+                opt_state = tx.fused_apply(buf, state.opt_state, leaves, g_scale=g_scale)
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)  # retires the update
+                with span("wft.sync"):
+                    torch.cuda.synchronize(dev)  # retires the update
             t2 = time.perf_counter()
             new_state = TrainState(state.model, opt_state, state.step + 1)
             hists = None
@@ -506,8 +521,9 @@ def make_train_step(
                     if self._zero_hists is None:
                         self._zero_hists = _zeros_histograms(named, grad_hist_bins, dev)
                     hists = self._zero_hists
-            for b in buf:
-                b.zero_()
+            with span("wft.grad_reduce"):
+                for b in buf:
+                    b.zero_()
             self._grad_buf = buf
             self.last_timing = {"accum_s": t1 - t0, "update_s": t2 - t1}
             if grad_hist_every:
