@@ -2056,7 +2056,8 @@ def decode_leg(cli_checkpoint: Path, dims=None, device="cuda") -> dict:
     log-probs (a tie in float32, which the assertion checks). Times: the
     encoder pass, each call, ms a token beside its bound, peaks. Last, the
     transcribe CLI as a subprocess on ``cli_checkpoint`` (the driver leg's
-    fp16 ``last_model.pt``) and a 16 kHz wav: exit 0, one line."""
+    fp16 ``last_model.pt``) and a 16 kHz wav: exit 0, one line. The greedy
+    graph's held buffers are released before the CLI."""
     import os
 
     import numpy as np
@@ -2225,7 +2226,7 @@ def decode_leg(cli_checkpoint: Path, dims=None, device="cuda") -> dict:
         f"rms {logit_rms:.5f}; argmax agrees at all {checked} positions past the margin; beam 1 "
         f"= greedy on {equal_rows} of {N} rows, float32 ties at {tie_rows}; launches {launches}")
     del model, params, calls, rungs, beam, beam1, mel
-    torch.cuda.empty_cache()
+    D.release()  # the greedy graph's held buffers, before the later legs' peaks
 
     # The CLI on the driver leg's checkpoint, as a user runs it.
     wav = SCRATCH / "decode_cli.wav"

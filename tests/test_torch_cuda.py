@@ -235,3 +235,95 @@ def test_driver_on_card(card, tmp_path, monkeypatch):
     keys = sorted(set().union(*records))
     assert keys == json.loads((root / "tests" / "driver_metrics_keys.json").read_text())
     assert (Path(run_dir) / "last_model.pt").exists()
+
+
+@pytest.mark.parametrize("widths", ["tiny", "large-v3"])
+def test_graphed_greedy_on_card(card, monkeypatch, widths):
+    """Greedy decoding with the token step replayed as a CUDA graph against
+    the eager step, bf16, the default filters, on a device named explicitly
+    (the last card: another than the current one where there are two):
+    8 rows, 8 again with new audio (no capture; prompt and token loop under
+    ``set_sync_debug_mode("error")``), 2 rows (a recapture at the new row
+    count), 8 again (another): the same tokens and average log-probs within
+    1e-6 each time. ``release`` then gives the held bytes back, and another
+    capture and release leave nothing behind.
+    ``large-v3``: its widths and vocabulary with 2 + 2 layers, 224
+    positions."""
+    from whisper_finetune_torch.models import decoding as D
+    from whisper_finetune_torch.models import init_params
+    from whisper_finetune_torch.models.dims import MODEL_PRESETS, ModelDimensions
+    from whisper_finetune_torch.models.whisper import ForwardConfig
+    from whisper_finetune_torch.tokenizer import get_tokenizer
+
+    if widths == "tiny":
+        dims = ModelDimensions(n_mels=80, n_audio_ctx=40, n_audio_state=64, n_audio_head=2,
+                               n_audio_layer=2, n_vocab=51866, n_text_ctx=32, n_text_state=64,
+                               n_text_head=2, n_text_layer=2)
+        max_len = 24
+    else:
+        dims = MODEL_PRESETS["large-v3"].replace(n_audio_layer=2, n_text_layer=2)
+        max_len = 224
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    N = 8
+    tok = get_tokenizer(multilingual=True, language="de", task="transcribe")
+    filters = D.default_filters(tok)
+    init = torch.tensor([list(tok.sot_sequence) + [tok.no_timestamps]] * N, device=dev)
+    params = init_params(dims, device=dev, seed=1).params()
+    fcfg = ForwardConfig(compute_dtype="bfloat16")
+    mels = [torch.randn((N, dims.n_mels, 2 * dims.n_audio_ctx), generator=card,
+                        device="cuda").to(dev) for _ in range(3)]
+    calls = [(mels[0], N), (mels[1], N), (mels[2], 2), (mels[2], N)]
+
+    def decode(mel, rows):
+        return D.greedy_decode(params, mel[:rows], init[:rows], tok.eot, dims, fcfg,
+                               max_len=max_len, filters=filters)
+
+    monkeypatch.setattr(D, "_CAPTURE", {})
+    eager = [decode(mel, rows) for mel, rows in calls]
+    monkeypatch.undo()
+    monkeypatch.setattr(D, "_GRAPHED", {})
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    real_loop = D._greedy_loop
+
+    def loop_without_sync(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_loop(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    g = D.greedy_decode
+    for c, ((mel, rows), (tokens, avg_lp)) in enumerate(zip(calls, eager)):
+        monkeypatch.setattr(D, "_greedy_loop", loop_without_sync if c == 1 else real_loop)
+        before = (g.graph_captures, g.graph_replays, g.eager_steps)
+        got_tokens, got_lp = decode(mel, rows)
+        after = (g.graph_captures, g.graph_replays, g.eager_steps)
+        assert after == (before[0] + (c != 1), before[1] + max_len, before[2]), c
+        assert torch.equal(got_tokens, tokens), c
+        assert (got_lp - avg_lp).abs().max().item() <= 1e-6, c
+    assert not torch.equal(eager[0][1], eager[1][1])  # the audio mattered
+    held = torch.cuda.memory_allocated(dev) - base
+    assert held > dims.n_vocab * dims.n_text_state * 4  # the float32 head at least
+    del got_tokens, got_lp
+    D.release()
+    released = torch.cuda.memory_allocated(dev)
+    # what stays is the capture stream's cuBLAS workspaces (the first test's)
+    assert not D._GRAPHED and released - base < min(held, 2**26)
+    decode(*calls[2])  # a capture and a release again hold nothing more
+    D.release()
+    assert torch.cuda.memory_allocated(dev) - released < 2**20
+
+
+def test_empty_cuda_graph_raises(card):
+    """A capture that records nothing (the failure of a step whose work goes
+    to another device's stream) raises instead of replaying nothing."""
+    from whisper_finetune_torch.models import decoding as D
+
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    x = torch.zeros(4, device=dev)
+    D._cuda_graph(lambda: x.add_(1), dev)()  # warm-up, capture, one replay
+    torch.cuda.synchronize(dev)
+    assert x.tolist() == [2.0] * 4
+    with pytest.raises(RuntimeError, match="is empty"):
+        D._cuda_graph(lambda: None, dev)

@@ -302,3 +302,162 @@ def test_transcribe_batch_matches_jax(monkeypatch, beam):
     for i in np.nonzero(passing)[0]:
         assert ttexts[i] == jtexts[i] == first[i]
     assert all(isinstance(t, str) for t in ttexts)
+
+
+# ---------------------------------------------------------------------------
+# The graph-ready step and the static-buffer path of greedy decoding
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_with_tensor_position_matches_int_position(dtype):
+    """The step with the position as a (1,) tensor (index, ``index_copy_``,
+    a tensor mask: the graph's form) against the int path (a view, a slice
+    write, a scalar mask): logits at every position and the caches after
+    the whole sequence, bit for bit."""
+    _, model, mel = _setup(scale_emb=20.0)
+    _, init = _prompt(3)
+    rng = np.random.default_rng(5)
+    seq = torch.from_numpy(np.concatenate(
+        [init, rng.integers(0, DIMS.n_vocab, (3, MAX_LEN - init.shape[1]))], 1))
+    fcfg = TFC(compute_dtype=dtype)
+    with torch.no_grad():
+        by_int, by_tensor = (tdec._encode(model.params(), torch.from_numpy(mel), TD, fcfg,
+                                          MAX_LEN) for _ in range(2))
+        for i in range(MAX_LEN):
+            a = by_int.step(seq[:, i], i)
+            b = by_tensor.step(seq[:, i], torch.tensor([i]))
+            assert torch.equal(a, b), i
+    assert torch.equal(by_int.cache_k, by_tensor.cache_k)
+    assert torch.equal(by_int.cache_v, by_tensor.cache_v)
+
+
+def _graph_on_cpu(monkeypatch):
+    """From here on, the static-buffer path on the CPU: "capturing" keeps
+    the function, and a "replay" calls it. The device's decoders start
+    empty."""
+    monkeypatch.setattr(tdec, "_CAPTURE", {"cpu": lambda fn, device: fn})
+    monkeypatch.setattr(tdec, "_GRAPHED", {})
+
+
+def _counts():
+    g = tdec.greedy_decode
+    return g.graph_captures, g.graph_replays, g.eager_steps
+
+
+def _greedy(model, mel, init, filters, temperature=0.0, seed=None):
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+    tokens, avg_lp = tdec.greedy_decode(
+        model.params(), torch.from_numpy(mel), torch.from_numpy(init), get_tokenizer().eot, TD,
+        TFC(compute_dtype="float32"), max_len=MAX_LEN, temperature=temperature, generator=gen,
+        filters=filters)
+    return tokens.numpy(), avg_lp.numpy()
+
+
+@pytest.mark.parametrize("case", ["filters", "no_filters", "timestamps", "sampled"])
+def test_graphed_greedy_matches_eager(monkeypatch, case):
+    """The static-buffer path (the capture stood in by a direct call) gives
+    the eager path's tokens and average log-probs, with filters on and off,
+    with the timestamp rules, and sampling at temperature 1 from a seeded
+    generator; its first call captures once and replays every position."""
+    _, model, mel = _setup(scale_emb=20.0)
+    tok, init = _prompt(3)
+    filters = None if case == "no_filters" else tdec.default_filters(tok)
+    if case == "timestamps":
+        filters = tdec.default_filters(tok, without_timestamps=False)
+        init = init[:, :-1]  # no <|notimestamps|>
+    temperature, seed = (1.0, 7) if case == "sampled" else (0.0, None)
+    c0 = _counts()
+    want = _greedy(model, mel, init, filters, temperature, seed)
+    c1 = _counts()
+    assert c1 == (c0[0], c0[1], c0[2] + MAX_LEN)
+    _graph_on_cpu(monkeypatch)
+    got = _greedy(model, mel, init, filters, temperature, seed)
+    assert _counts() == (c1[0] + 1, c1[1] + MAX_LEN, c1[2])
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    if case == "timestamps":
+        assert (got[0][:, 0] >= tok.timestamp_begin).all()  # the rules fired
+
+
+def test_graphed_greedy_reads_each_calls_inputs(monkeypatch):
+    """Successive calls through one device's static buffers, each with other
+    audio and other weights: each gives its own eager tokens, and only the
+    first captures. A call with another row count captures anew."""
+    tok, init = _prompt(3)
+    filters = tdec.default_filters(tok)
+    cases = [_setup(seed=s, scale_emb=20.0)[1:] for s in (0, 1, 2)]
+    want = [_greedy(model, mel, init, filters) for model, mel in cases]
+    assert not all(np.array_equal(want[0][0], w[0]) for w in want[1:])
+    _graph_on_cpu(monkeypatch)
+    c0 = _counts()
+    for (model, mel), (tokens, avg_lp) in zip(cases, want):
+        got = _greedy(model, mel, init, filters)
+        np.testing.assert_array_equal(got[0], tokens)
+        np.testing.assert_array_equal(got[1], avg_lp)
+    assert _counts()[:2] == (c0[0] + 1, c0[1] + 3 * MAX_LEN)
+    held = tdec._GRAPHED[torch.device("cpu")]
+    model, mel = cases[0]
+    got = _greedy(model, mel[:2], init[:2], filters)
+    np.testing.assert_array_equal(got[0], want[0][0][:2])
+    assert _counts()[0] == c0[0] + 2
+    assert tdec._GRAPHED[torch.device("cpu")] is not held and not held.busy
+
+
+def test_graphed_decoder_in_use_runs_eagerly(monkeypatch):
+    """A call that finds the device's buffers held by another call runs the
+    eager step, and leaves the holder's buffers alone."""
+    _graph_on_cpu(monkeypatch)
+    tok, init = _prompt(3)
+    filters = tdec.default_filters(tok)
+    _, model, mel = _setup(scale_emb=20.0)
+    want = _greedy(model, mel, init, filters)
+    held = tdec._GRAPHED[torch.device("cpu")]
+    held.busy = True
+    c0 = _counts()
+    got = _greedy(model, mel, init, filters)
+    assert _counts() == (c0[0], c0[1], c0[2] + MAX_LEN)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert tdec._GRAPHED[torch.device("cpu")] is held and held.busy
+
+
+def test_release_lets_go_of_held_decoders(monkeypatch):
+    """A call's end drops the parameters' embeddings from the held decoder;
+    :func:`release` empties the device's slot, and the next call captures
+    anew with the same tokens."""
+    _graph_on_cpu(monkeypatch)
+    tok, init = _prompt(3)
+    filters = tdec.default_filters(tok)
+    _, model, mel = _setup(scale_emb=20.0)
+    want = _greedy(model, mel, init, filters)
+    held = tdec._GRAPHED[torch.device("cpu")]
+    assert held.tok_emb is None and held.pos_emb is None and not held.busy
+    tdec.release()
+    assert not tdec._GRAPHED
+    c0 = _counts()
+    got = _greedy(model, mel, init, filters)
+    assert _counts()[:2] == (c0[0] + 1, c0[1] + MAX_LEN)
+    assert tdec._GRAPHED[torch.device("cpu")] is not held
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_beam_leaves_graph_counters(monkeypatch):
+    _graph_on_cpu(monkeypatch)
+    _, model, mel = _setup(scale_emb=20.0)
+    _, init = _prompt(3)
+    c0 = _counts()
+    tdec.beam_decode(model.params(), torch.from_numpy(mel), torch.from_numpy(init),
+                     get_tokenizer().eot, TD, TFC(compute_dtype="float32"), max_len=MAX_LEN,
+                     beam_size=2, filters=_filters()[0])
+    assert _counts() == c0 and not tdec._GRAPHED
+
+
+def test_filter_ids_are_made_once_a_device():
+    tf, _ = _filters()
+    logits = torch.zeros((2, DIMS.n_vocab))
+    z = torch.zeros(2, dtype=torch.long)
+    tf.apply(logits, z, z, z, 0)
+    a = tdec._ids(tf.suppress, logits.device)
+    tf.apply(logits, z, z, z, 0)
+    assert tdec._ids(tf.suppress, logits.device) is a
+    assert a.tolist() == list(tf.suppress)

@@ -17,7 +17,18 @@ and beam search, whisper's logit filters and its temperature fallback.
   in the compute dtype, the value ``_single_query_attention`` scales them
   to at every use in JAX; the query is scaled the same way.
 * The decoder's stacked matrices are cast to the compute dtype once a
-  decode call, not once a token.
+  decode call, not once a token. The encoder pass casts each block's
+  matrices at use (``precast_weights=False``), so that its transients stay
+  one block's while a graphed decoder's buffers are held.
+* On a card, greedy decoding replays the token step as one CUDA graph a
+  position (:class:`_GraphedDecoder`): the layers and the head are captured
+  once over the decoder's buffers, which each call writes its weights,
+  cross K/V and emptied caches into, and which the device keeps for the
+  next call of the same shape (:func:`release` lets them go). The
+  embedding, the position, the filters, the choice of token and the
+  bookkeeping run eagerly around each replay, and nothing in the token loop
+  waits for the card. Beam search and the CPU run the same step eagerly. ``greedy_decode.graph_captures``, ``.graph_replays`` and
+  ``.eager_steps`` count what ran.
 * Finished rows freeze at ``eot``; ``avg_logprob`` counts accepted tokens.
 * Beam search flattens the beams into the batch axis, reorders the caches
   with one ``index_select`` a step into a second preallocated buffer, and
@@ -39,8 +50,11 @@ Every function runs where the parameters live.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
+import warnings
 import zlib
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +66,9 @@ from whisper_finetune_torch.models.whisper import (
     Params,
     _dense,
     _layer_views,
+    _set,
     encoder_forward,
+    flatten,
     layer_norm,
 )
 from whisper_finetune_torch.runtime import span
@@ -137,7 +153,11 @@ class DecodeFilters:
         return torch.where(force_ts[:, None] & ~is_ts[None, :], neg, logits)
 
 
-def _ids(ids: Tuple[int, ...], device) -> torch.Tensor:
+@functools.lru_cache(maxsize=64)
+def _ids(ids: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``ids`` as a long tensor on ``device``, made once for each tuple and
+    device: the copy from the host waits for the card, which once a token
+    step would make the host and the card take turns. Callers only read it."""
     return torch.tensor(ids, dtype=torch.long, device=device)
 
 
@@ -178,12 +198,13 @@ def default_filters(tokenizer, without_timestamps: bool = True, suppress_blank: 
 
 def _eval_fcfg(fcfg: ForwardConfig) -> ForwardConfig:
     """The encoder pass's configuration: the compute dtype, LoRA's scale and
-    the attention mix of ``fcfg``, no remat and no training features."""
+    the attention mix of ``fcfg``, no remat and no training features; each
+    block casts its own matrices at use."""
     return ForwardConfig(
         compute_dtype=fcfg.compute_dtype, remat_encoder=False, remat_decoder=False,
         lora_scale=fcfg.lora_scale, attn_impl=fcfg.attn_impl,
         attn_impl_encoder=fcfg.attn_impl_encoder, attn_impl_decoder=fcfg.attn_impl_decoder,
-        attn_impl_cross=fcfg.attn_impl_cross,
+        attn_impl_cross=fcfg.attn_impl_cross, precast_weights=False,
     )
 
 
@@ -206,37 +227,82 @@ def _single_query_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n
     return torch.matmul(w, v).view(N, d)
 
 
-class _Decoder:
-    """The decoder's weights for one decode call (stacked matrices cast to
-    the compute dtype once), the cross K/V of every layer and the
-    self-attention caches; :meth:`step` runs one position for all rows."""
+# The decoder block's leaves that the token step reads (the cross-attention's
+# K/V projections only make the cross K/V, once a call).
+_STEP_LEAVES = tuple(
+    [(ln, k) for ln in ("attn_ln", "cross_attn_ln", "mlp_ln") for k in ("bias", "scale")]
+    + [("attn", k) for k in ("k_w", "o_b", "o_w", "q_b", "q_w", "v_b", "v_w")]
+    + [("cross_attn", k) for k in ("o_b", "o_w", "q_b", "q_w")]
+    + [("mlp", k) for k in ("fc1_b", "fc1_w", "fc2_b", "fc2_w")])
 
-    def __init__(self, params: Params, dims: ModelDimensions, dtype: torch.dtype,
-                 xa: torch.Tensor, max_len: int):
-        dec = params["decoder"]
-        self.dims, self.dtype, self.max_len = dims, dtype, max_len
+
+class _Decoder:
+    """The token step's state for ``n`` rows, in buffers of its own: every
+    tensor :meth:`blocks` reads (the step's leaves, the stacked matrices in
+    the compute dtype, the float32 tied head), the cross K/V of every layer,
+    the self-attention caches and the position, a (1,) long tensor.
+    :meth:`load` writes one call's values into them in place, so that a
+    graph captured over :meth:`blocks` reads every later call's;
+    :meth:`step` runs one position for all rows. The embeddings are the
+    parameters' own, held from :meth:`load` on: only :meth:`embed` reads
+    them."""
+
+    def __init__(self, dims: ModelDimensions, dtype: torch.dtype, n: int, n_ctx: int,
+                 max_len: int, device):
         L, H = dims.n_text_layer, dims.n_text_head
-        d = dims.n_text_state
+        D = dims.n_text_state // H
+        self.dims, self.dtype, self.max_len = dims, dtype, max_len
         self.scale = _qk_scale(dims)
-        self.layers = _layer_views(dec["blocks"], L, dtype)  # matrices cast once
-        self.tok_emb, self.pos_emb = dec["tok_emb"].detach(), dec["pos_emb"].detach()
-        self.ln = {k: v.detach() for k, v in dec["ln"].items()}
-        # The tied head with bf16 weights and float32 products and sums:
-        # (V, d) in the compute dtype, upcast once.
-        self.head_w = self.tok_emb.to(dtype).float().t()
-        N, S = xa.shape[0], xa.shape[1]
-        D = d // H
-        self.cross_k = torch.empty((L, N, H, S, D), dtype=dtype, device=xa.device)
+        self.own: Optional[Dict[Tuple[str, ...], torch.Tensor]] = None  # at the first load
+        self.tok_emb: Optional[torch.Tensor] = None
+        self.pos_emb: Optional[torch.Tensor] = None
+        self.cross_k = torch.empty((L, n, H, n_ctx, D), dtype=dtype, device=device)
         self.cross_v = torch.empty_like(self.cross_k)
-        for i, bp in enumerate(self.layers):
-            ca = bp["cross_attn"]
-            k = torch.matmul(xa, ca["k_w"].to(dtype))
+        self.cache_k = torch.empty((L, n, H, max_len, D), dtype=dtype, device=device)
+        self.cache_v = torch.empty_like(self.cache_k)
+        self.window = torch.arange(max_len, device=device)
+        self.pos = torch.zeros((1,), dtype=torch.long, device=device)
+
+    def load(self, params: Params, xa: torch.Tensor) -> "_Decoder":
+        """One call's weights from ``params`` (the matrices cast by
+        ``copy_``), its cross K/V from the encoder's output ``xa`` (N, S, d),
+        and empty caches."""
+        dec, dtype = params["decoder"], self.dtype
+        L, H = self.dims.n_text_layer, self.dims.n_text_head
+        self.tok_emb, self.pos_emb = dec["tok_emb"].detach(), dec["pos_emb"].detach()
+        weights: Params = {"ln": {k: v.detach() for k, v in dec["ln"].items()}}
+        for path in _STEP_LEAVES:
+            leaf = dec["blocks"]
+            for k in path:
+                leaf = leaf[k]
+            _set(weights, ("blocks",) + path, leaf.detach())
+        if self.own is None:
+            self.own = {path: torch.empty_like(a, dtype=dtype if a.dim() >= 3 else a.dtype)
+                        for path, a in flatten(weights)}
+            # The tied head with bf16 weights and float32 products and sums:
+            # (V, d) in the compute dtype, held upcast.
+            self.own[("head",)] = torch.empty_like(self.tok_emb)
+            tree: Params = {}
+            for path, buf in self.own.items():
+                _set(tree, path, buf)
+            self.ln = tree["ln"]
+            self.layers = _layer_views(tree["blocks"], L, dtype, precast=False)
+            self.head_w = tree["head"].t()
+        for path, a in flatten(weights):
+            self.own[path].copy_(a)
+        self.own[("head",)].copy_(self.tok_emb.to(dtype))
+        N, S = xa.shape[0], xa.shape[1]
+        D = self.dims.n_text_state // H
+        ca = dec["blocks"]["cross_attn"]
+        for i, (k_w, v_w, v_b) in enumerate(zip(ca["k_w"].unbind(0), ca["v_w"].unbind(0),
+                                                 ca["v_b"].unbind(0))):
+            k = torch.matmul(xa, k_w.to(dtype))
             self.cross_k[i] = (k * self.scale).view(N, S, H, D).transpose(1, 2)
-            v = torch.matmul(xa, ca["v_w"].to(dtype)) + ca["v_b"].to(dtype)
+            v = torch.matmul(xa, v_w.to(dtype)) + v_b.to(dtype)
             self.cross_v[i] = v.view(N, S, H, D).transpose(1, 2)
-        self.cache_k = torch.zeros((L, N, H, max_len, D), dtype=dtype, device=xa.device)
-        self.cache_v = torch.zeros_like(self.cache_k)
-        self.window = torch.arange(max_len, device=xa.device)
+        self.cache_k.zero_()
+        self.cache_v.zero_()
+        return self
 
     def tile(self, k: int) -> None:
         """Each row repeated ``k`` times, contiguous per row (beams)."""
@@ -255,23 +321,30 @@ class _Decoder:
         self._spare = (self.cache_k, self.cache_v)
         self.cache_k, self.cache_v = sk, sv
 
-    def step(self, token: torch.Tensor, pos: int) -> torch.Tensor:
-        """token (N,) at position ``pos`` -> float32 logits (N, V); writes
-        the position's keys and values into the caches."""
+    def embed(self, token: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The step's input: the embeddings of token (N,) and of the
+        position, summed in float32 and cast to the compute dtype (into
+        ``out``)."""
+        x = self.tok_emb[token] + self.pos_emb[self.pos]
+        return x.to(self.dtype) if out is None else out.copy_(x)
+
+    def blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """The layers and the tied head over x (N, d) at the position ->
+        float32 logits (N, V); writes the position's keys and values into
+        the caches."""
         dims, dtype = self.dims, self.dtype
         H = dims.n_text_head
-        N = token.shape[0]
+        N = x.shape[0]
         D = dims.n_text_state // H
-        x = (self.tok_emb[token] + self.pos_emb[pos]).to(dtype)
-        mask = torch.where(self.window <= pos, 0.0, NEG_INF).to(torch.float32)
+        mask = torch.where(self.window <= self.pos, 0.0, NEG_INF).to(torch.float32)
         for i, bp in enumerate(self.layers):
             sa = bp["attn"]
             x_ln = layer_norm(x, bp["attn_ln"])
             q = _dense(x_ln, sa["q_w"], sa["q_b"], dtype) * self.scale
             k = _dense(x_ln, sa["k_w"], None, dtype) * self.scale
             v = _dense(x_ln, sa["v_w"], sa["v_b"], dtype)
-            self.cache_k[i, :, :, pos] = k.view(N, H, D)
-            self.cache_v[i, :, :, pos] = v.view(N, H, D)
+            self.cache_k[i].index_copy_(2, self.pos, k.view(N, H, 1, D))
+            self.cache_v[i].index_copy_(2, self.pos, v.view(N, H, 1, D))
             a = _single_query_attention(q, self.cache_k[i], self.cache_v[i], H, mask)
             x = x + _dense(a, sa["o_w"], sa["o_b"], dtype)
 
@@ -287,6 +360,16 @@ class _Decoder:
         x = layer_norm(x, self.ln)
         return torch.matmul(x.float(), self.head_w)
 
+    def step(self, token: torch.Tensor, pos) -> torch.Tensor:
+        """token (N,) at position ``pos`` (an int, or a (1,) long tensor)
+        -> float32 logits (N, V); writes the position's keys and values into
+        the caches."""
+        if isinstance(pos, int):
+            self.pos.fill_(pos)
+        else:
+            self.pos.copy_(pos)
+        return self.blocks(self.embed(token))
+
     def prefill(self, initial_tokens: torch.Tensor) -> torch.Tensor:
         """Teacher-forces the prompt; the last position's logits."""
         logits = None
@@ -295,12 +378,147 @@ class _Decoder:
         return logits
 
 
+@functools.lru_cache(maxsize=None)
+def _side_stream(device: torch.device):
+    """The side stream of every capture on ``device``: cuBLAS keeps a
+    workspace for each stream it has run on until the process ends, so a
+    new stream a capture would hold another 33 MiB at every recapture."""
+    return torch.cuda.Stream(device=device)
+
+
+def _cuda_graph(fn: Callable[[], None], device: torch.device) -> Callable[[], None]:
+    """``fn`` run once on a side stream of ``device`` (the warm-up), then
+    captured on that stream as a CUDA graph; returns what replays it there.
+    Raises where the graph came out empty (``fn``'s work went to another
+    device's stream)."""
+    with torch.cuda.device(device):
+        side = _side_stream(device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                fn()
+    empty = [str(w.message) for w in caught if "graph is empty" in str(w.message).lower()]
+    if empty:
+        raise RuntimeError(f"the token step's CUDA graph on {device} is empty: {empty[0]}")
+
+    def replay() -> None:
+        with torch.cuda.device(device):
+            graph.replay()
+
+    return replay
+
+
+class _GraphedDecoder(_Decoder):
+    """Greedy decoding's token step as one captured graph a position:
+    :meth:`_Decoder.blocks` captured once over a static input ``x`` (N, d)
+    and the position buffer, and replayed at every position, the prompt's
+    included. Each position writes its position and embedding into them
+    eagerly before the replay, and reads the logits the graph leaves in its
+    output. ``capture(fn, device)`` records ``fn`` and returns what replays
+    it (:func:`_cuda_graph` on a card).
+
+    ``key`` is what the buffers' shapes depend on. ``busy`` is set from
+    :func:`_graphed_decoder` to :meth:`unload`; a call that finds it set
+    runs eagerly."""
+
+    def __init__(self, key, dims: ModelDimensions, dtype: torch.dtype, n: int, n_ctx: int,
+                 max_len: int, device, capture: Callable):
+        super().__init__(dims, dtype, n, n_ctx, max_len, device)
+        self.key, self.capture, self.busy = key, capture, False
+        self.x = torch.empty((n, dims.n_text_state), dtype=dtype, device=device)
+        self.replay: Optional[Callable[[], None]] = None
+        self.logits: Optional[torch.Tensor] = None
+
+    def _blocks(self) -> None:
+        self.logits = self.blocks(self.x)
+
+    def step(self, token: torch.Tensor, pos: int) -> torch.Tensor:
+        """As :meth:`_Decoder.step`; the logits are the graph's output,
+        overwritten by the next step."""
+        self.pos.fill_(pos)
+        self.embed(token, out=self.x)
+        if self.replay is None:
+            self.replay = self.capture(self._blocks, self.x.device)
+            _greedy.graph_captures += 1
+        self.replay()
+        _greedy.graph_replays += 1
+        return self.logits
+
+    def unload(self) -> None:
+        """Ends a call: the parameters' embeddings are let go, and the
+        buffers are free for the next call."""
+        self.tok_emb = self.pos_emb = None
+        self.busy = False
+
+
+# Device type -> how a graph is captured there; elsewhere the step runs eagerly.
+_CAPTURE: Dict[str, Callable] = {"cuda": _cuda_graph}
+# Each device's graphed decoder, kept for the next call of the same key: the
+# decode functions take no state from their callers, and a capture costs a
+# warm-up step and the host time of a step's launches. One holds its bf16
+# matrices, float32 head, cross K/V, caches and the graph's pool between
+# calls: 3.72 GiB for large-v3 at 8 rows and 224 positions in bf16 (PERF.md
+# §6). :func:`release` lets them go.
+_GRAPHED: Dict[torch.device, _GraphedDecoder] = {}
+_GRAPHED_LOCK = threading.Lock()
+
+
+def release() -> None:
+    """Lets go of every device's held graphed decoder, its graph and its
+    buffers, and returns the freed blocks to the devices. A call in flight
+    keeps its own until it ends; the next call captures anew."""
+    with _GRAPHED_LOCK:
+        _GRAPHED.clear()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
+def _graphed_decoder(params: Params, dims: ModelDimensions, dtype: torch.dtype,
+                     xa: torch.Tensor, max_len: int) -> Optional[_GraphedDecoder]:
+    """The device's graphed decoder for this call, loaded and marked busy;
+    None where the device type has no capture or another call holds it. A
+    call of another key (device type, dims, dtype, rows, audio context,
+    ``max_len``) frees the held one first and captures anew."""
+    capture = _CAPTURE.get(xa.device.type)
+    if capture is None:
+        return None
+    n, n_ctx = xa.shape[0], xa.shape[1]
+    key = (dims, dtype, n, n_ctx, max_len)
+    with _GRAPHED_LOCK:
+        graphed = _GRAPHED.get(xa.device)
+        if graphed is not None and graphed.busy:
+            return None
+        if graphed is None or graphed.key != key:
+            _GRAPHED.pop(xa.device, None)
+            graphed = None  # the old buffers go before the new are allocated
+            graphed = _GraphedDecoder(key, dims, dtype, n, n_ctx, max_len, xa.device, capture)
+            _GRAPHED[xa.device] = graphed
+        graphed.busy = True
+    try:
+        graphed.load(params, xa)
+    except BaseException:
+        graphed.unload()
+        raise
+    return graphed
+
+
 def _encode(params: Params, mel: torch.Tensor, dims: ModelDimensions, fcfg: ForwardConfig,
-            max_len: int) -> _Decoder:
+            max_len: int, graphed: bool = False):
+    """The encoder pass and a loaded decoder: the device's graphed one where
+    ``graphed`` and one is free there, else an eager :class:`_Decoder`."""
     with span("wft.decode.encode"):
         eval_fcfg = _eval_fcfg(fcfg)
         xa = encoder_forward(params, mel, dims, eval_fcfg, train=False).to(eval_fcfg.dtype)
-        return _Decoder(params, dims, eval_fcfg.dtype, xa, max_len)
+        dec = _graphed_decoder(params, dims, eval_fcfg.dtype, xa, max_len) if graphed else None
+        if dec is None:
+            dec = _Decoder(dims, eval_fcfg.dtype, xa.shape[0], xa.shape[1], max_len,
+                           xa.device).load(params, xa)
+        return dec
 
 
 def _filter(filters: Optional[DecodeFilters], logits, prev1, prev2, max_ts, n_sampled: int):
@@ -326,9 +544,31 @@ def greedy_decode(params: Params, mel: torch.Tensor, initial_tokens: torch.Tenso
 
     ``temperature > 0`` samples (Gumbel noise from ``generator``, on the
     parameters' device); 0 is argmax. ``filters`` applies whisper's logit
-    filters to every step's logits before the choice."""
+    filters to every step's logits before the choice.
+
+    On a card the decoder step replays the device's graph
+    (:class:`_GraphedDecoder`), captured at the first call of this shape."""
+    dec = _encode(params, mel, dims, fcfg, max_len, graphed=True)
+    graphed = isinstance(dec, _GraphedDecoder)
+    try:
+        out, lp_sum, count = _greedy_loop(dec, initial_tokens, eot, max_len, temperature,
+                                          generator, filters)
+    finally:
+        if graphed:
+            dec.unload()
+    if not graphed:
+        _greedy.eager_steps += max_len
+    return out, lp_sum / count.clamp(min=1)
+
+
+def _greedy_loop(dec, initial_tokens: torch.Tensor, eot: int, max_len: int,
+                 temperature: float, generator: Optional[torch.Generator],
+                 filters: Optional[DecodeFilters]):
+    """:func:`greedy_decode`'s prefill and token loop over a loaded decoder:
+    (tokens, summed log-probs, accepted counts). Once the prompt's logits
+    are filtered (which puts the filters' ids on the device), nothing here
+    waits for the card."""
     B, T0 = initial_tokens.shape
-    dec = _encode(params, mel, dims, fcfg, max_len)
 
     def select(lg):
         if temperature > 0:
@@ -362,7 +602,17 @@ def greedy_decode(params: Params, mel: torch.Tensor, initial_tokens: torch.Tenso
             nxt, nxt_lp = select(logits)
             finished = finished | (token == eot)
             prev_tok, token, tok_lp = token, nxt, nxt_lp
-    return out, lp_sum / count.clamp(min=1)
+    return out, lp_sum, count
+
+
+# greedy decoding's counters: decoder steps replayed as a graph, graphs
+# captured, and steps run eagerly (CPU, or the device's graph in use). They
+# are the function object's, counted through ``_greedy``, which wrappers set
+# in ``greedy_decode``'s place do not replace.
+greedy_decode.graph_captures = 0
+greedy_decode.graph_replays = 0
+greedy_decode.eager_steps = 0
+_greedy = greedy_decode
 
 
 @torch.no_grad()
