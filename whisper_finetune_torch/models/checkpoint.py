@@ -252,6 +252,10 @@ def load_checkpoint(path: str, device="cuda") -> Tuple[Whisper, ModelDimensions]
     dev = resolve_device(device)
     with open(path, "rb") as fp:
         ckpt = torch.load(fp, map_location="cpu", weights_only=True)
+    if "omni_dims" in ckpt:  # the speech LLM's own format (models/omni.py)
+        from whisper_finetune_torch.models import omni
+
+        return omni.from_checkpoint(ckpt, dev)
     if "dims" not in ckpt or "model_state_dict" not in ckpt:
         raise ValueError(f"{path} is not an OpenAI-whisper checkpoint "
                          "(missing 'dims'/'model_state_dict')")
@@ -334,7 +338,8 @@ def fetch_checkpoint(name: str, root: str) -> str:
 
 def load_model(name: str, device="cuda") -> Tuple[Whisper, ModelDimensions]:
     """A model by checkpoint path or preset name, on ``device``: a file path
-    loads that file; a preset (``tiny`` .. ``large-v3-turbo``) loads
+    loads that file; a preset (``tiny`` .. ``large-v3-turbo``, or the speech
+    LLM ``uni-moe-2.0-omni``, :class:`omni.OmniModel`) loads
     ``$WHISPER_CHECKPOINT_DIR/<name>.pt``, else with ``WFT_ALLOW_DOWNLOAD=1``
     fetches the official file into that directory (default
     ``~/.cache/whisper_finetune_tpu``), else with ``WFT_ALLOW_RANDOM_INIT=1``
@@ -343,7 +348,9 @@ def load_model(name: str, device="cuda") -> Tuple[Whisper, ModelDimensions]:
     dev = resolve_device(device)
     if os.path.isfile(name):
         return load_checkpoint(name, dev)
-    dims = get_preset_dims(name)
+    from whisper_finetune_torch.models import omni
+
+    dims = get_preset_dims(name) or omni.OMNI_PRESETS.get(name)
     if dims is None:
         raise ValueError(f"Unknown model name or missing checkpoint file: {name}")
     ckpt_dir = os.environ.get("WHISPER_CHECKPOINT_DIR")
@@ -366,4 +373,6 @@ def load_model(name: str, device="cuda") -> Tuple[Whisper, ModelDimensions]:
         )
     print(f"No local checkpoint for '{name}'; initializing {name} architecture "
           "with random weights (WFT_ALLOW_RANDOM_INIT=1).")
+    if omni.is_omni(dims):
+        return omni.init_params(dims, device=dev, seed=0), dims
     return init_params(dims, device=dev, seed=0), dims

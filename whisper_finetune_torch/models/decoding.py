@@ -29,6 +29,14 @@ and beam search, whisper's logit filters and its temperature fallback.
   bookkeeping run eagerly around each replay, and nothing in the token loop
   waits for the card. Beam search and the CPU run the same step eagerly. ``greedy_decode.graph_captures``, ``.graph_replays`` and
   ``.eager_steps`` count what ran.
+* Uni-MoE-2.0-Omni's speech-to-text path (``dims`` an
+  :class:`~whisper_finetune_torch.models.omni.OmniDimensions`) takes the
+  same greedy loop: the tower and the adapter make the audio rows, one
+  prefill pass runs the prompt with them, and :class:`omni.OmniDecoder`
+  steps the language model. Its graph is captured over the resident
+  parameters (52 GB would not fit twice): only the caches, the position and
+  the selections are the call's. ``transcribe_batch`` gives its ids as
+  text (the model's tokenizer is not in the repository).
 * Finished rows freeze at ``eot``; ``avg_logprob`` counts accepted tokens.
 * Beam search flattens the beams into the batch axis, reorders the caches
   with one ``index_select`` a step into a second preallocated buffer, and
@@ -60,6 +68,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from whisper_finetune_torch.models import omni
 from whisper_finetune_torch.models.dims import ModelDimensions
 from whisper_finetune_torch.models.whisper import (
     ForwardConfig,
@@ -247,6 +256,27 @@ class _Decoder:
     parameters' own, held from :meth:`load` on: only :meth:`embed` reads
     them."""
 
+    # The prompt's positions are token steps (graph replays on a card).
+    PROMPT_STEPS = True
+
+    @staticmethod
+    def encode(params: Params, mel: torch.Tensor, dims: ModelDimensions,
+               fcfg: ForwardConfig) -> torch.Tensor:
+        """The encoder's output (B, n_audio_ctx, d) in the compute dtype."""
+        return encoder_forward(params, mel, dims, fcfg, train=False).to(fcfg.dtype)
+
+    @staticmethod
+    def graph_key(params: Params, dims: ModelDimensions, dtype: torch.dtype, xa: torch.Tensor,
+                  max_len: int):
+        """What a held graph's buffers depend on (each call copies its
+        weights into them)."""
+        return (dims, dtype, xa.shape[0], xa.shape[1], max_len)
+
+    @classmethod
+    def eager(cls, params: Params, dims: ModelDimensions, dtype: torch.dtype,
+              xa: torch.Tensor, max_len: int) -> "_Decoder":
+        return cls(dims, dtype, xa.shape[0], xa.shape[1], max_len, xa.device).load(params, xa)
+
     def __init__(self, dims: ModelDimensions, dtype: torch.dtype, n: int, n_ctx: int,
                  max_len: int, device):
         L, H = dims.n_text_layer, dims.n_text_head
@@ -377,6 +407,9 @@ class _Decoder:
             logits = self.step(initial_tokens[:, i], i)
         return logits
 
+    def finish(self, steps: int) -> None:
+        """Ends a call of ``steps`` generated positions: nothing to count."""
+
 
 @functools.lru_cache(maxsize=None)
 def _side_stream(device: torch.device):
@@ -413,24 +446,25 @@ def _cuda_graph(fn: Callable[[], None], device: torch.device) -> Callable[[], No
     return replay
 
 
-class _GraphedDecoder(_Decoder):
-    """Greedy decoding's token step as one captured graph a position:
-    :meth:`_Decoder.blocks` captured once over a static input ``x`` (N, d)
-    and the position buffer, and replayed at every position, the prompt's
-    included. Each position writes its position and embedding into them
+class _GraphStep:
+    """A decoder's token step as one captured graph a position (a decoder
+    class of :data:`_DECODERS` with this mixed in first):
+    ``blocks`` captured once over a static input ``x`` (N, d) and the
+    position buffer, and replayed at every position (the Whisper prompt's
+    included). Each position writes its position and embedding into them
     eagerly before the replay, and reads the logits the graph leaves in its
     output. ``capture(fn, device)`` records ``fn`` and returns what replays
     it (:func:`_cuda_graph` on a card).
 
-    ``key`` is what the buffers' shapes depend on. ``busy`` is set from
+    ``key`` is what the buffers' shapes (and, for a graph over the
+    parameters themselves, their addresses) depend on. ``busy`` is set from
     :func:`_graphed_decoder` to :meth:`unload`; a call that finds it set
     runs eagerly."""
 
-    def __init__(self, key, dims: ModelDimensions, dtype: torch.dtype, n: int, n_ctx: int,
-                 max_len: int, device, capture: Callable):
-        super().__init__(dims, dtype, n, n_ctx, max_len, device)
+    def _graph_init(self, key, capture: Callable, n: int, d: int, dtype: torch.dtype,
+                    device) -> None:
         self.key, self.capture, self.busy = key, capture, False
-        self.x = torch.empty((n, dims.n_text_state), dtype=dtype, device=device)
+        self.x = torch.empty((n, d), dtype=dtype, device=device)
         self.replay: Optional[Callable[[], None]] = None
         self.logits: Optional[torch.Tensor] = None
 
@@ -438,7 +472,7 @@ class _GraphedDecoder(_Decoder):
         self.logits = self.blocks(self.x)
 
     def step(self, token: torch.Tensor, pos: int) -> torch.Tensor:
-        """As :meth:`_Decoder.step`; the logits are the graph's output,
+        """As the eager step; the logits are the graph's output,
         overwritten by the next step."""
         self.pos.fill_(pos)
         self.embed(token, out=self.x)
@@ -449,6 +483,16 @@ class _GraphedDecoder(_Decoder):
         _greedy.graph_replays += 1
         return self.logits
 
+
+class _GraphedDecoder(_GraphStep, _Decoder):
+    """Whisper's token step graphed over the decoder's own buffers, which
+    each call writes its weights, cross K/V and emptied caches into."""
+
+    def __init__(self, key, capture: Callable, params: Params, dims: ModelDimensions,
+                 dtype: torch.dtype, xa: torch.Tensor, max_len: int):
+        _Decoder.__init__(self, dims, dtype, xa.shape[0], xa.shape[1], max_len, xa.device)
+        self._graph_init(key, capture, xa.shape[0], dims.n_text_state, dtype, xa.device)
+
     def unload(self) -> None:
         """Ends a call: the parameters' embeddings are let go, and the
         buffers are free for the next call."""
@@ -456,6 +500,27 @@ class _GraphedDecoder(_Decoder):
         self.busy = False
 
 
+class _GraphedOmniDecoder(_GraphStep, omni.OmniDecoder):
+    """The speech LLM's token step graphed over the resident parameters and
+    the decoder's caches."""
+
+    def __init__(self, key, capture: Callable, params: Params, dims: "omni.OmniDimensions",
+                 dtype: torch.dtype, xa: torch.Tensor, max_len: int):
+        omni.OmniDecoder.__init__(self, params, dims, dtype, xa.shape[0], max_len, xa.device)
+        self._graph_init(key, capture, xa.shape[0], dims.d_model, dtype, xa.device)
+
+    def unload(self) -> None:
+        self.audio = None
+        self.busy = False
+
+
+# Each model's decoder, eager and graphed, by the type of its dimensions. A
+# decoder class gives ``encode``, ``graph_key``, ``eager``, ``PROMPT_STEPS``,
+# ``load``, ``prefill``, ``step``, ``blocks``, ``embed`` and ``finish``.
+_DECODERS: Dict[type, Tuple[type, type]] = {
+    ModelDimensions: (_Decoder, _GraphedDecoder),
+    omni.OmniDimensions: (omni.OmniDecoder, _GraphedOmniDecoder),
+}
 # Device type -> how a graph is captured there; elsewhere the step runs eagerly.
 _CAPTURE: Dict[str, Callable] = {"cuda": _cuda_graph}
 # Each device's graphed decoder, kept for the next call of the same key: the
@@ -478,17 +543,18 @@ def release() -> None:
         torch.cuda.empty_cache()
 
 
-def _graphed_decoder(params: Params, dims: ModelDimensions, dtype: torch.dtype,
-                     xa: torch.Tensor, max_len: int) -> Optional[_GraphedDecoder]:
+def _graphed_decoder(params: Params, dims, dtype: torch.dtype, xa: torch.Tensor,
+                     max_len: int) -> Optional[_GraphStep]:
     """The device's graphed decoder for this call, loaded and marked busy;
     None where the device type has no capture or another call holds it. A
-    call of another key (device type, dims, dtype, rows, audio context,
-    ``max_len``) frees the held one first and captures anew."""
+    call of another key (the device type and the decoder class's
+    ``graph_key``) frees the held one first and captures anew. ``xa`` is
+    what the decoder class's ``encode`` gave."""
     capture = _CAPTURE.get(xa.device.type)
     if capture is None:
         return None
-    n, n_ctx = xa.shape[0], xa.shape[1]
-    key = (dims, dtype, n, n_ctx, max_len)
+    graphed_cls = _DECODERS[type(dims)][1]
+    key = graphed_cls.graph_key(params, dims, dtype, xa, max_len)
     with _GRAPHED_LOCK:
         graphed = _GRAPHED.get(xa.device)
         if graphed is not None and graphed.busy:
@@ -496,7 +562,7 @@ def _graphed_decoder(params: Params, dims: ModelDimensions, dtype: torch.dtype,
         if graphed is None or graphed.key != key:
             _GRAPHED.pop(xa.device, None)
             graphed = None  # the old buffers go before the new are allocated
-            graphed = _GraphedDecoder(key, dims, dtype, n, n_ctx, max_len, xa.device, capture)
+            graphed = graphed_cls(key, capture, params, dims, dtype, xa, max_len)
             _GRAPHED[xa.device] = graphed
         graphed.busy = True
     try:
@@ -507,17 +573,17 @@ def _graphed_decoder(params: Params, dims: ModelDimensions, dtype: torch.dtype,
     return graphed
 
 
-def _encode(params: Params, mel: torch.Tensor, dims: ModelDimensions, fcfg: ForwardConfig,
+def _encode(params: Params, mel: torch.Tensor, dims, fcfg: ForwardConfig,
             max_len: int, graphed: bool = False):
     """The encoder pass and a loaded decoder: the device's graphed one where
-    ``graphed`` and one is free there, else an eager :class:`_Decoder`."""
+    ``graphed`` and one is free there, else an eager one."""
     with span("wft.decode.encode"):
         eval_fcfg = _eval_fcfg(fcfg)
-        xa = encoder_forward(params, mel, dims, eval_fcfg, train=False).to(eval_fcfg.dtype)
+        eager_cls = _DECODERS[type(dims)][0]
+        xa = eager_cls.encode(params, mel, dims, eval_fcfg)
         dec = _graphed_decoder(params, dims, eval_fcfg.dtype, xa, max_len) if graphed else None
         if dec is None:
-            dec = _Decoder(dims, eval_fcfg.dtype, xa.shape[0], xa.shape[1], max_len,
-                           xa.device).load(params, xa)
+            dec = eager_cls.eager(params, dims, eval_fcfg.dtype, xa, max_len)
         return dec
 
 
@@ -547,17 +613,20 @@ def greedy_decode(params: Params, mel: torch.Tensor, initial_tokens: torch.Tenso
     filters to every step's logits before the choice.
 
     On a card the decoder step replays the device's graph
-    (:class:`_GraphedDecoder`), captured at the first call of this shape."""
+    (:class:`_GraphStep`), captured at the first call of this shape. For the
+    speech LLM, ``initial_tokens`` hold :data:`omni.AUDIO_ID` where the
+    audio rows go."""
     dec = _encode(params, mel, dims, fcfg, max_len, graphed=True)
-    graphed = isinstance(dec, _GraphedDecoder)
+    graphed = isinstance(dec, _GraphStep)
     try:
         out, lp_sum, count = _greedy_loop(dec, initial_tokens, eot, max_len, temperature,
                                           generator, filters)
+        dec.finish(out.shape[1])
     finally:
         if graphed:
             dec.unload()
     if not graphed:
-        _greedy.eager_steps += max_len
+        _greedy.eager_steps += out.shape[1] + (initial_tokens.shape[1] if dec.PROMPT_STEPS else 0)
     return out, lp_sum / count.clamp(min=1)
 
 
@@ -629,6 +698,8 @@ def beam_decode(params: Params, mel: torch.Tensor, initial_tokens: torch.Tensor,
     ``length_penalty`` is None; the returned average keeps whisper's
     ``sum / (len + 1)``. Returns (tokens (B, max_len - T0), average
     log-prob of the winning beam (B,))."""
+    if not isinstance(dims, ModelDimensions):
+        raise NotImplementedError("beam search runs Whisper's decoder only")
     B, T0 = initial_tokens.shape
     K, V = beam_size, dims.n_vocab
     n_gen = max_len - T0
@@ -693,14 +764,15 @@ def _compression_ratio(text: str) -> float:
     return len(data) / len(zlib.compress(data))
 
 
-def transcribe_batch(params: Params, dims: ModelDimensions, audio_batch: np.ndarray, tokenizer,
+def transcribe_batch(params: Params, dims, audio_batch: np.ndarray, tokenizer,
                      fcfg: Optional[ForwardConfig] = None, language: Optional[str] = None,
                      max_len: int = 224, beam_size: Optional[int] = None,
                      temperatures: Sequence[float] = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0),
                      compression_ratio_threshold: Optional[float] = 2.4,
                      logprob_threshold: Optional[float] = -1.0,
                      length_penalty: Optional[float] = None, without_timestamps: bool = True,
-                     filters: Optional[DecodeFilters] = None) -> List[str]:
+                     filters: Optional[DecodeFilters] = None,
+                     prompt: Optional[Tuple[Sequence[int], Sequence[int]]] = None) -> List[str]:
     """Raw 30 s audio (B, 480000) -> transcripts, with whisper's fallback:
     temperature 0 decodes by beam search (``beam_size``) or greedily, and a
     row whose zlib compression ratio exceeds ``compression_ratio_threshold``
@@ -709,31 +781,46 @@ def transcribe_batch(params: Params, dims: ModelDimensions, audio_batch: np.ndar
     rung's index). Retry rungs take only the failing rows, gathered into a
     power-of-two bucket padded with the first failing row. The filters are
     :func:`default_filters` unless ``filters`` is given. Runs on the
-    parameters' device."""
+    parameters' device.
+
+    For the speech LLM (``dims`` an ``OmniDimensions``) ``max_len`` counts
+    the positions after the prompt, which is ``prompt`` (the ids before and
+    after the audio rows; :data:`omni.DEFAULT_PROMPT` by default); there
+    are no filters unless given, and where ``tokenizer`` is None a
+    transcript is its ids, space-separated."""
     from whisper_finetune_torch.ops.spec_augment import FeaturizeConfig, featurize_impl
 
     fcfg = fcfg or ForwardConfig()
-    dev = params["decoder"]["tok_emb"].device
+    dev = flatten(params)[0][1].device
     B = audio_batch.shape[0]
     with torch.no_grad(), span("wft.decode.featurize"):
         mel = featurize_impl(torch.as_tensor(audio_batch, dtype=torch.float32, device=dev),
                              torch.full((B,), 3000, dtype=torch.int32, device=dev), None,
                              FeaturizeConfig(n_mels=dims.n_mels), train=False)
-    if filters is None:
-        filters = default_filters(tokenizer, without_timestamps=without_timestamps)
-    sot_seq = list(tokenizer.sot_sequence)
-    if language is not None:
-        sot_seq[1] = tokenizer.special_tokens[f"<|{language}|>"]
-    if without_timestamps:
-        sot_seq.append(tokenizer.no_timestamps)
+    if omni.is_omni(dims):
+        pre, post = prompt or omni.DEFAULT_PROMPT
+        sot_seq = list(pre) + [omni.AUDIO_ID] * dims.audio_tokens + list(post)
+        eot = dims.eot
+        max_len = len(sot_seq) + max_len
+    else:
+        if filters is None:
+            filters = default_filters(tokenizer, without_timestamps=without_timestamps)
+        sot_seq = list(tokenizer.sot_sequence)
+        if language is not None:
+            sot_seq[1] = tokenizer.special_tokens[f"<|{language}|>"]
+        if without_timestamps:
+            sot_seq.append(tokenizer.no_timestamps)
+        eot = tokenizer.eot
     init = torch.tensor([sot_seq] * B, dtype=torch.long, device=dev)
 
     def decode_text(row) -> str:
         ids = []
         for t in row.tolist():
-            if t == tokenizer.eot:
+            if t == eot:
                 break
             ids.append(int(t))
+        if tokenizer is None:
+            return " ".join(str(i) for i in ids)
         return tokenizer.decode(ids)
 
     texts: List[Optional[str]] = [None] * B
@@ -748,12 +835,12 @@ def transcribe_batch(params: Params, dims: ModelDimensions, audio_batch: np.ndar
         rows = torch.from_numpy(sel).to(dev)
         mel_r, init_r = mel[rows], init[rows]
         if temp == 0.0 and beam_size is not None:
-            tokens, avg_lp = beam_decode(params, mel_r, init_r, tokenizer.eot, dims, fcfg,
+            tokens, avg_lp = beam_decode(params, mel_r, init_r, eot, dims, fcfg,
                                          max_len=max_len, beam_size=beam_size,
                                          length_penalty=length_penalty, filters=filters)
         else:
             gen = torch.Generator(device=dev).manual_seed(t_idx)
-            tokens, avg_lp = greedy_decode(params, mel_r, init_r, tokenizer.eot, dims, fcfg,
+            tokens, avg_lp = greedy_decode(params, mel_r, init_r, eot, dims, fcfg,
                                            max_len=max_len, temperature=float(temp),
                                            generator=gen, filters=filters)
         with span("wft.decode.to_host"):

@@ -10,6 +10,10 @@ window. Prints ``path<TAB>text`` a file.
 Usage (on the card; ``--device cpu`` for the CPU):
     python -m whisper_finetune_torch.scripts.transcribe \\
         --checkpoint best_model.pt audio1.wav audio2.wav [--language de]
+
+``--checkpoint uni-moe-2.0-omni`` (or a file of that model) runs
+Uni-MoE-2.0-Omni's speech-to-text path (``models/omni.py``): greedy only,
+``--max-len`` new tokens after its prompt, transcripts printed as ids.
 """
 
 from __future__ import annotations
@@ -41,12 +45,16 @@ def main(args) -> None:
     from whisper_finetune_torch._device import resolve_device
     from whisper_finetune_torch.models import ForwardConfig, load_model
     from whisper_finetune_torch.models.decoding import transcribe_batch
+    from whisper_finetune_torch.models.omni import is_omni
     from whisper_finetune_torch.ops.attention import resolve_auto_impls
     from whisper_finetune_torch.tokenizer import get_tokenizer
 
     device = resolve_device(args.device)
     model, dims = load_model(args.checkpoint, device)
-    tokenizer = get_tokenizer(multilingual=True, language=args.language, task="transcribe")
+    # The speech LLM's tokenizer is not in the repository: its transcripts
+    # are its ids, space-separated.
+    tokenizer = (None if is_omni(dims) else
+                 get_tokenizer(multilingual=True, language=args.language, task="transcribe"))
 
     batch = np.zeros((len(args.audio), 480000), np.float32)
     for i, path in enumerate(args.audio):
@@ -73,7 +81,8 @@ def cli(argv: Optional[list] = None) -> None:
     parser.add_argument("audio", nargs="+", help="wav or .npy (f32 mono) files")
     parser.add_argument("--checkpoint", required=True)
     parser.add_argument("--language", default="de")
-    parser.add_argument("--max-len", type=int, default=224)
+    parser.add_argument("--max-len", type=int, default=224,
+                        help="positions with the prompt (the speech LLM: new tokens)")
     parser.add_argument("--dtype", default="bfloat16")
     parser.add_argument("--attn-impl", default="auto",
                         help="xla | flash | splash | flash_fwd | auto (the kernels at the "
