@@ -21,7 +21,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    largest difference printed); the forward's registers and spills from
    ``ptxas -v`` and its blocks an SM from the occupancy calculator; the fused
    8-bit AdamW on (NB, 256) leaves with NB
-   divisible and not divisible by 128, three steps. Then each kernel's time
+   divisible and not divisible by 128, three steps; the layer norm
+   (``ops/layer_norm.py``) forward and backward at 48,000 x 1,280 without and
+   with deep SpecAugment's keep-vectors and at 8 x 1,280 against its plain
+   version at the card test's limits, the backward twice bit-equal, and the
+   three shapes' device times beside the plain version's, bf16
+   ``F.layer_norm``'s and the byte bound. Then each kernel's time
    at the main path's shapes, its plain twin's time, the PyTorch library
    call's time (``scaled_dot_product_attention`` and its backward), and the
    bound (the larger of bytes over 3.35 TB/s and operations over
@@ -39,7 +44,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    smoothing 0.1, clip 1.0, fused 8-bit AdamW(2e-5, wd 0.01), through
    ``make_train_step``: 2 warm-up and 5 timed steps. Every launch counter is
    set to 0 just before and read just after; each kernel must have launched
-   exactly its expected count. Then the fused AdamW against its twin on
+   exactly its expected count (the layer norm's: forward ``2 * blocks + 2``
+   and backward ``blocks + 2`` a step, ``blocks`` two a kept encoder block
+   and three a decoder block). Then the fused AdamW against its twin on
    copies of the model's own ``tok_emb`` and a (32, 1280, 5120) leaf with
    their 8-bit state, and its time over all quantized leaves.
 4. The Muon flagship, built from ``configs/config_large_v3_best_muon.yaml``
@@ -153,8 +160,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 ``--profile`` adds a ``torch.profiler`` window of two main-path steps: device
 time by kernel and group, and the device's busy share of the wall time.
 ``--kernels-only`` stops after phase 2 (build, checks and kernel times): the
-same closing lines, with the attention kernels alone in ``kernels`` and their
-launch counts 0, since no leg ran.
+same closing lines, with the attention kernels and the layer norm alone in
+``kernels`` and their launch counts 0, since no leg ran.
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name/power-limit line, and as the last line
@@ -620,6 +627,163 @@ def time_decoder_self(gen) -> dict:
     return rec
 
 
+# The layer norm's shapes: the encoder's rows of a 32-clip microbatch
+# without and with deep SpecAugment's keep-vectors, and greedy's token step
+# (8 rows, replayed in a CUDA graph).
+LN_SHAPES = ((48000, 1280, False), (48000, 1280, True), (8, 1280, False))
+
+
+def _ln_key(n, d, masks) -> str:
+    return f"{n}x{d}" + ("_keep" if masks else "")
+
+
+def _ln_inputs(gen, n, d, masks):
+    """x (n // T, T, d) bf16 with T = 1500 where it divides n, gamma and beta
+    float32, dy bf16, keep-vectors from draws (bf16, as the model passes)."""
+    import torch
+    from whisper_finetune_torch.models.whisper import axis_keep_masks
+
+    T = 1500 if n % 1500 == 0 else n
+    x = (torch.randn((n // T, T, d), generator=gen, device="cuda") * 2 + 0.3).to(torch.bfloat16)
+    w = 1 + 0.2 * torch.randn((d,), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    dy = torch.randn((n // T, T, d), generator=gen, device="cuda").to(torch.bfloat16)
+    tk = fk = None
+    if masks:
+        u = torch.rand((2, 1, 2), generator=gen, device="cuda").cpu().numpy()
+        tk = torch.from_numpy(axis_keep_masks(u[0], T, min(100, T))[0]).cuda().to(torch.bfloat16)
+        fk = torch.from_numpy(axis_keep_masks(u[1], d, 27)[0]).cuda().to(torch.bfloat16)
+    return x, w, b, dy, tk, fk
+
+
+def _bf16_ulp(a, b):
+    """One bf16 unit in the last place of the larger of |a| and |b|, float32."""
+    import torch
+
+    m = torch.maximum(a.float().abs(), b.float().abs()).clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def check_layer_norm(gen) -> dict:
+    """``layer_norm_fwd`` / ``layer_norm_bwd`` against their plain versions
+    (the float32 composite, on the card) at ``LN_SHAPES``, at the limits of
+    ``tests/test_torch_cuda.py::test_layer_norm_kernel_matches_plain``: y
+    within one bf16 ulp plus 1e-5 of |xhat * gamma| + |gamma| (where the
+    affine cancels, the float32 value's own error); the keep-vectors' zeros
+    where the plain version's are; dx within one ulp plus 1e-4 of the row's
+    largest |dx|; dgamma and dbeta within 1e-3 of the sum of their terms'
+    magnitudes; the backward twice bit-equal (no atomics). Returns each
+    shape's largest errors, as a share of its limit (``*_of_limit``) and
+    absolute."""
+    import torch
+    from whisper_finetune_torch.ops import layer_norm as LN
+
+    out = {}
+    for n, d, masks in LN_SHAPES:
+        x, w, b, dy, tk, fk = _ln_inputs(gen, n, d, masks)
+        y, mean, rstd = LN.layer_norm_fwd(x, w, b, 1e-5, tk, fk)
+        dx, dw, db = LN.layer_norm_bwd(dy, x, mean, rstd, w, b, tk, fk)
+        again = LN.layer_norm_bwd(dy, x, mean, rstd, w, b, tk, fk)
+        y_r, mean_r, rstd_r = LN.layer_norm_fwd_plain(x, w, b, 1e-5, tk, fk)
+        dx_r, dw_r, db_r = LN.layer_norm_bwd_plain(dy, x, mean_r, rstd_r, w, b, tk, fk)
+        stat = x.shape[:-1] + (1,)
+        xh = (x.float() - mean_r.view(stat)) * rstd_r.view(stat)
+        g = dy.float() if not masks else (dy * fk * tk[:, None]).float()
+        limits = {
+            "y": _bf16_ulp(y, y_r) + 1e-5 * ((xh * w).abs() + w.abs()),
+            "dx": _bf16_ulp(dx, dx_r) + 1e-4 * dx_r.float().abs().amax(dim=-1, keepdim=True),
+            "dgamma": 1e-3 * (g * xh).abs().sum(dim=(0, 1)) + 1e-6,
+            "dbeta": 1e-3 * g.abs().sum(dim=(0, 1)) + 1e-6,
+        }
+        errs = {"y": (y.float() - y_r.float()).abs(), "dx": (dx.float() - dx_r.float()).abs(),
+                "dgamma": (dw - dw_r).abs(), "dbeta": (db - db_r).abs()}
+        key = _ln_key(n, d, masks)
+        rec = {f"{k}_of_limit": float((errs[k] / limits[k]).max()) for k in errs}
+        rec.update({f"{k}_max_abs": float(errs[k].max()) for k in errs})
+        rec["mean_max_abs"] = float((mean - mean_r).abs().max())
+        rec["rstd_max_rel"] = float(((rstd - rstd_r).abs() / rstd_r).max())
+        out[key] = rec
+        log(f"  layer_norm [{key}]: " + ", ".join(
+            f"{k} {rec[k + '_max_abs']:.3g} ({rec[k + '_of_limit']:.3f} of its limit)"
+            for k in errs))
+        bad = [k for k in errs if rec[f"{k}_of_limit"] > 1]
+        if masks and not torch.equal(y == 0, y_r == 0):
+            bad.append("the keep-vectors' zeros")
+        if rec["mean_max_abs"] > 1e-5 or rec["rstd_max_rel"] > 1e-5:
+            bad.append("mean / rstd")
+        if not all(torch.equal(a, b) for a, b in zip((dx, dw, db), again)):
+            bad.append("the backward twice")
+        if bad:
+            raise AssertionError(f"layer_norm [{key}]: {bad} past their limits: {rec}")
+    return out
+
+
+def time_layer_norm(gen) -> dict:
+    """Device ms of each direction at ``LN_SHAPES`` (``graph_time_ms``): the
+    kernels, their plain versions, and PyTorch's own bf16 layer norm
+    (``F.layer_norm`` with bf16 gamma and beta, and its
+    ``native_layer_norm_backward``: a yardstick the port does not call). The
+    bound counts each input read and each output written once: forward x and
+    y (4 B an element), mean and rstd (8 B a row), gamma and beta; backward
+    dy, x and dx (6 B an element), mean and rstd, gamma, dgamma and dbeta. A
+    norm's few operations an element lie far below the card's line."""
+    import torch
+    import torch.nn.functional as F
+    from whisper_finetune_torch.ops import layer_norm as LN
+
+    out = {}
+    for n, d, masks in LN_SHAPES:
+        x, w, b, dy, tk, fk = _ln_inputs(gen, n, d, masks)
+        _, mean, rstd = LN.layer_norm_fwd(x, w, b, 1e-5, tk, fk)
+        w16, b16 = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        _, mean16, rstd16 = torch.native_layer_norm(x, (d,), w16, b16, 1e-5)
+        calls = {
+            "fwd": (lambda: LN.layer_norm_fwd(x, w, b, 1e-5, tk, fk),
+                    lambda: LN.layer_norm_fwd_plain(x, w, b, 1e-5, tk, fk),
+                    lambda: F.layer_norm(x, (d,), w16, b16, 1e-5)),
+            "bwd": (lambda: LN.layer_norm_bwd(dy, x, mean, rstd, w, b, tk, fk),
+                    lambda: LN.layer_norm_bwd_plain(dy, x, mean, rstd, w, b, tk, fk),
+                    lambda: torch.ops.aten.native_layer_norm_backward(
+                        dy, x, (d,), mean16, rstd16, w16, b16, [True, True, True])),
+        }
+        n_bytes = {"fwd": 4 * n * d + 8 * n + 8 * d, "bwd": 6 * n * d + 8 * n + 12 * d}
+        rec = {}
+        for way, (kern, plain, library) in calls.items():
+            t_bound, by = bound_ms(n_bytes[way], 0)
+            rec[way] = {"ms": graph_time_ms(lambda f=kern: f),
+                        "plain_ms": graph_time_ms(lambda f=plain: f),
+                        "library_ms": graph_time_ms(lambda f=library: f),
+                        "bound_ms": t_bound, "bound_by": by}
+            rec[way]["roofline_pct"] = 100 * t_bound / rec[way]["ms"]
+        key = _ln_key(n, d, masks)
+        out[key] = rec
+        for way, r in rec.items():
+            log(f"  layer_norm {way} [{key}]: {r['ms']:.4f} ms device time ({r['roofline_pct']:.1f}% "
+                f"of its bound {r['bound_ms']:.4f}; plain {r['plain_ms']:.4f}; library "
+                f"{r['library_ms']:.4f})")
+    return out
+
+
+def layer_norm_entry(ln_err: dict, ln_t: dict, by_leg: dict, per_step: dict) -> dict:
+    """The ``kernels`` entry of the layer norm: 48,000 x 1,280's forward at
+    the top level, its backward and the other shapes under their names.
+    ``by_leg`` maps a leg to its launch counts; it is empty when no leg ran."""
+    from whisper_finetune_torch.ops import layer_norm as LN
+
+    top = ln_t[_ln_key(*LN_SHAPES[0])]
+    return {
+        "name": "layer_norm", "route": "cuda", "source": "whisper_finetune_torch/csrc/layer_norm.cu",
+        "device_kernels": list(LN.KERNEL_NAMES),
+        "replaces": "none: JAX's layer_norm (whisper_finetune_tpu/models/whisper.py:319) is "
+                    "left to XLA's fusion",
+        "launches": sum(sum(leg.values()) for leg in by_leg.values()),
+        "launches_by_leg": by_leg, "max_abs_err": ln_err,
+        **{k: top["fwd"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "launches_per_step": per_step, "shape": list(LN_SHAPES[0][:2]), "backward": top["bwd"],
+        "shapes": ln_t,
+    }
+
+
 def time_adamw8(model, opt_state, gen) -> dict:
     """One step's fused update over every quantized leaf of the main path's
     model (all of large-v3's quantized leaves divide by 256)."""
@@ -664,6 +828,8 @@ def time_adamw8(model, opt_state, gen) -> dict:
 def main_path() -> dict:
     import torch
     from whisper_finetune_torch.models import get_preset_dims
+    from whisper_finetune_torch.models import whisper as W
+    from whisper_finetune_torch.ops import layer_norm as LN
     from whisper_finetune_torch.tools import first_slice as fs
 
     dims = get_preset_dims("large-v3")
@@ -698,6 +864,7 @@ def main_path() -> dict:
         if i == 0:  # the parameters after one step, on the host, for the remat leg
             after_one = [p.detach().cpu() for p in leaves]
     launches = {fn.__name__: fn.launches for fn in kernels}
+    norms = {fn.__name__: fn.launches for fn in LN.KERNELS}
     peak = torch.cuda.max_memory_allocated()
 
     n_steps = WARMUP_STEPS + TIMED_STEPS
@@ -709,6 +876,16 @@ def main_path() -> dict:
     }
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
+    # Two norms a kept encoder block and three a decoder block, forward and
+    # remat recompute, and ln_post and the decoder's last norm once a
+    # microbatch (tests/test_torch_layer_norm.py::test_norm_calls_a_step).
+    blocks = 2 * W.encoder_forward.blocks_run + 3 * W.decoder_forward.blocks_run
+    if blocks != 2 * dims.n_audio_layer * n_steps + 3 * dims.n_text_layer * n_steps:
+        raise AssertionError(f"{blocks} block norms, every block of {n_steps} steps expected")
+    expect_norms = {"layer_norm_fwd": 2 * blocks + 2 * n_steps,
+                    "layer_norm_bwd": blocks + 2 * n_steps}
+    if norms != expect_norms:
+        raise AssertionError(f"layer norm launches {norms} != expected {expect_norms}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss {losses}")
     # Random init with 0.02-std embeddings gives near-uniform logits.
@@ -729,11 +906,13 @@ def main_path() -> dict:
         "audio_hours_per_s": B * 30 / 3600 / step_s,
         "peak_mem_bytes": peak, "achieved_tflops": flops / step_s / 1e12,
         "launches": launches, "launches_per_step": {k: v // n_steps for k, v in launches.items()},
+        "norm_launches": norms,
+        "norm_launches_per_step": {k: v // n_steps for k, v in norms.items()},
     }
     log(f"  median step {step_s * 1e3:.1f} ms, {rec['audio_hours_per_s']:.4f} audio-h/s, "
         f"peak {peak / 2**30:.2f} GiB, {rec['achieved_tflops']:.1f} TFLOP/s "
         f"(bench.py accounting, 4x forward)")
-    log(f"  launches {launches}")
+    log(f"  launches {launches}, layer norm {norms}")
     return rec, state, step, batch, gen, (grad_norms[0], after_one)
 
 
@@ -2654,6 +2833,7 @@ def main() -> int:
     check_fwd_repeatable(gen)
     repeatable = check_bwd_repeatable(gen)
     adam = check_adamw8(gen)
+    ln_err = check_layer_norm(gen)
     log("timing at main-path shapes:")
     enc = time_attention(gen, "encoder self-attention", 8, 20, 1500, 1500)
     cross = time_attention(gen, "cross-attention", 8, 20, 448, 1500)
@@ -2673,8 +2853,11 @@ def main() -> int:
         f"{dec_route['kernels']['fwd_bwd_ms']:.3f} ms, plain path {dec_route['plain']['fwd_bwd_ms']:.3f} ms; "
         f"forward alone {dec_route['kernels']['fwd_ms']:.3f} / {dec_route['plain']['fwd_ms']:.3f} ms")
 
+    ln_t = time_layer_norm(gen)
+
     if "--kernels-only" in sys.argv[1:]:
-        print_result(attention_entries(enc, cross, dec_self, attn_err, repeatable, fwd_res, {}, {}))
+        print_result(attention_entries(enc, cross, dec_self, attn_err, repeatable, fwd_res, {}, {})
+                     + [layer_norm_entry(ln_err, ln_t, {}, {})])
         return 0
 
     log("main path:")
@@ -2804,12 +2987,15 @@ def main() -> int:
         "launches_per_step": per_step["fused_adamw8_leaf"],
         "codes_off_by_one": {"m": adam["m_codes_off"], "nu": adam["n_codes_off"]},
     })
+    kernels.append(layer_norm_entry(ln_err, ln_t, {"splash_adamw8": main_rec["norm_launches"]},
+                                    main_rec["norm_launches_per_step"]))
 
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": libs.build_seconds, "kernels": kernels, "attention_timing":
               {"encoder": enc, "cross": cross, "decoder_self": dec_self,
                "decoder_self_routes": dec_route}, "adamw8_timing": adam_t,
               "adamw8_check": adam, "attn_bwd_repeatable": repeatable,
+              "layer_norm_check": ln_err, "layer_norm_timing": ln_t,
               "main_path": main_rec, "flagship_legs": legs, "model_layer_legs": new_legs,
               "driver_leg": driver, "ddp_leg": ddp, "split_leg": split, "decode_leg": decode,
               "package_leg": package,

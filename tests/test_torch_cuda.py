@@ -327,3 +327,150 @@ def test_empty_cuda_graph_raises(card):
     assert x.tolist() == [2.0] * 4
     with pytest.raises(RuntimeError, match="is empty"):
         D._cuda_graph(lambda: None, dev)
+
+
+def _bf16_ulp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place of the larger of |a| and |b|
+    (8 significant bits), elementwise, float32."""
+    m = torch.maximum(a.float().abs(), b.float().abs()).clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def _ln_inputs(card, n, d, masks):
+    """x (n // T, T, d) bf16 with T = 1500 where it divides n (the encoder's
+    rows), gamma and beta float32, dy bf16, keep-vectors from draws."""
+    from whisper_finetune_torch.models.whisper import axis_keep_masks
+
+    T = 1500 if n % 1500 == 0 else n
+    x = (torch.randn((n // T, T, d), generator=card, device="cuda") * 2 + 0.3).to(torch.bfloat16)
+    w = 1 + 0.2 * torch.randn((d,), generator=card, device="cuda")
+    b = 0.1 * torch.randn((d,), generator=card, device="cuda")
+    dy = torch.randn((n // T, T, d), generator=card, device="cuda").to(torch.bfloat16)
+    tk = fk = None
+    if masks:
+        u = torch.rand((2, 1, 2), generator=card, device="cuda").cpu().numpy()
+        tk = torch.from_numpy(axis_keep_masks(u[0], T, min(100, T))[0]).cuda().to(torch.bfloat16)
+        fk = torch.from_numpy(axis_keep_masks(u[1], d, 27)[0]).cuda().to(torch.bfloat16)
+    return x, w, b, dy, tk, fk
+
+
+@pytest.mark.parametrize("masks", [False, True])
+@pytest.mark.parametrize("n,d", [(48000, 1280), (96000, 1280), (8, 1280), (3000, 384),
+                                 (300, 128)])
+def test_layer_norm_kernel_matches_plain(card, n, d, masks):
+    """``wft::layer_norm`` on the card against its plain version (the
+    composite, float32 on the card), forward and backward, and the backward
+    twice."""
+    from whisper_finetune_torch.ops import layer_norm as LN
+
+    x, w, b, dy, tk, fk = _ln_inputs(card, n, d, masks)
+    launches = [fn.launches for fn in LN.KERNELS]
+    y, mean, rstd = LN.layer_norm_op(x, w, b, 1e-5, tk, fk)
+    dx, dw, db = LN.layer_norm_bwd(dy, x, mean, rstd, w, b, tk, fk)
+    dx2, dw2, db2 = LN.layer_norm_bwd(dy, x, mean, rstd, w, b, tk, fk)
+    assert [fn.launches - c for fn, c in zip(LN.KERNELS, launches)] == [1, 2]
+    y_r, mean_r, rstd_r = LN.layer_norm_fwd_plain(x, w, b, 1e-5, tk, fk)
+    dx_r, dw_r, db_r = LN.layer_norm_bwd_plain(dy, x, mean_r, rstd_r, w, b, tk, fk)
+    # The forward: float32 statistics and affine in another order, rounded
+    # once to bf16: within one bf16 ulp, plus where xhat * gamma + beta
+    # cancels toward 0 the float32 value's own error, which the statistics'
+    # last bits move by ~1e-6 of the terms |xhat * gamma| and |gamma|
+    # (allowed: 1e-5 of them).
+    xh = (x.float() - mean_r.view(x.shape[:-1] + (1,))) * rstd_r.view(x.shape[:-1] + (1,))
+    err = (y.float() - y_r.float()).abs()
+    assert (err <= _bf16_ulp(y, y_r) + 1e-5 * ((xh * w).abs() + w.abs())).all(), err.max()
+    if masks:
+        assert torch.equal(y == 0, y_r == 0) and (y_r == 0).any()
+    torch.testing.assert_close(mean, mean_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rstd_r, rtol=1e-5, atol=0)
+    # dx: float32 row sums over d in another order (each ~d * 2**-24 of the
+    # largest term) before one rounding to bf16: one bf16 ulp plus 1e-4 of
+    # the row's largest |dx|.
+    row_max = dx_r.float().abs().amax(dim=-1, keepdim=True)
+    err = (dx.float() - dx_r.float()).abs()
+    assert (err <= _bf16_ulp(dx, dx_r) + 1e-4 * row_max).all(), err.max()
+    # dgamma, dbeta: float32 column sums over n rows, the kernel's in a tree
+    # of at most n / (4 * blocks) + 4 + blocks sequential adds, the
+    # reference's in its own: the error of either is below 1e-3 (n 96,000:
+    # ~2**-24 * 2,000 adds ~ 1.2e-4) of the sum of the terms' magnitudes.
+    g = dy.float() if not masks else (dy * fk * tk[:, None]).float()
+    for got, ref, mag in ((dw, dw_r, (g * xh).abs().sum(dim=(0, 1))),
+                          (db, db_r, g.abs().sum(dim=(0, 1)))):
+        assert got.dtype == torch.float32 and ((got - ref).abs() <= 1e-3 * mag + 1e-6).all()
+    # No atomics: the same bits every run.
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+def test_layer_norm_kernel_in_a_cuda_graph(card):
+    """The op and its backward captured in a CUDA graph and replayed, and run
+    eagerly, under ``set_sync_debug_mode("error")``: no host sync, the
+    eager results' bits."""
+    from whisper_finetune_torch.ops import layer_norm as LN
+
+    x, w, b, dy, tk, fk = _ln_inputs(card, 3000, 1280, True)
+
+    def run():
+        y, mean, rstd = LN.layer_norm_op(x, w, b, 1e-5, tk, fk)
+        return (y, mean, rstd) + LN.layer_norm_bwd(dy, x, mean, rstd, w, b, tk, fk)
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            captured = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for out in captured:
+        out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, eager):
+        assert torch.equal(got, want)
+
+
+def test_layer_norm_launches_a_step_on_card(card):
+    """A tiny model's one-pass train step on the card, bf16, deep SpecAugment
+    and stochastic depth on: ``.launches`` equal the norms the step ran
+    (``tests/test_torch_layer_norm.py::test_norm_calls_a_step`` derives the
+    count on the CPU): forward ``2 * blocks + 2 * accum``, backward
+    ``blocks + 2 * accum`` with ``blocks`` two a kept encoder block and
+    three a kept decoder block."""
+    from whisper_finetune_torch.models import ModelDimensions, init_params
+    from whisper_finetune_torch.models import whisper as W
+    from whisper_finetune_torch.models.whisper import ForwardConfig
+    from whisper_finetune_torch.ops import layer_norm as LN
+    from whisper_finetune_torch.optim import adamw_8bit
+    from whisper_finetune_torch.train import TrainState, make_train_step
+
+    dims = ModelDimensions(n_mels=80, n_audio_ctx=150, n_audio_state=128, n_audio_head=2,
+                           n_audio_layer=4, n_vocab=500, n_text_ctx=24, n_text_state=128,
+                           n_text_head=2, n_text_layer=4)
+    model = init_params(dims, seed=0)
+    tx = adamw_8bit(1e-3)
+    state = TrainState(model, tx.init([p for _, p in model.leaves()]), 0)
+    fcfg = ForwardConfig(attn_impl="flash", stochastic_depth=0.2, dsa_apply=True,
+                         dsa_time_mask_param=40)
+    step = make_train_step(dims, fcfg, tx, 0.1, max_grad_norm=1.0, accum_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    accum = 2
+    batch = {"mel": torch.from_numpy(rng.standard_normal((accum, 2, 80, 300)).astype(np.float32)),
+             "dec_input": torch.from_numpy(rng.integers(0, 500, (accum, 2, 24))),
+             "dec_output": torch.from_numpy(rng.integers(0, 500, (accum, 2, 24)))}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    for fn in LN.KERNELS:
+        fn.launches = 0
+    W.encoder_forward.blocks_run = W.decoder_forward.blocks_run = 0
+    state, loss = step(state, batch, card)
+    assert np.isfinite(loss.item())
+    blocks = 2 * W.encoder_forward.blocks_run + 3 * W.decoder_forward.blocks_run
+    assert [fn.launches for fn in LN.KERNELS] == [2 * blocks + 2 * accum, blocks + 2 * accum]

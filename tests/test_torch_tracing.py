@@ -198,8 +198,13 @@ def test_span_clock_counts_what_the_profiler_sees():
         seen[name] = seen.get(name, 0) + 1
     assert {k: v[0] for k, v in clock.items()} == seen
     assert all(v[1] > 0 for v in clock.values())
-    # a span's wall time holds its children's
-    assert clock["wft.encoder"][1] >= clock["wft.enc_block"][1] * 0.99 - 1e-3
+    # a span's wall time holds its children's: the encoder's against the
+    # blocks that nest in it (the manual backward replays the blocks under
+    # wft.backward, outside the encoder)
+    nested = [b - a for (name, a, b, _), parent in zip(spans, _parents(spans))
+              if name == "wft.enc_block" and parent == "wft.encoder"]
+    assert 0 < len(nested) < _count(spans, "wft.enc_block")
+    assert clock["wft.encoder"][1] >= sum(nested) * 1e-9 * 0.99 - 1e-3
     with runtime.timed() as outer:
         with runtime.timed() as inner:
             with runtime.span("wft.x"):

@@ -63,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 from whisper_finetune_torch._device import resolve_device
 from whisper_finetune_torch.models.dims import ModelDimensions
 from whisper_finetune_torch.ops.attention import attention
+from whisper_finetune_torch.ops.layer_norm import layer_norm_op
 from whisper_finetune_torch.ops.remat import named, parse_remat_policy
 from whisper_finetune_torch.runtime import span
 
@@ -381,14 +382,18 @@ def init_params(dims: ModelDimensions, generator: Optional[torch.Generator] = No
 # ---------------------------------------------------------------------------
 
 def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5,
-               name: Optional[str] = None) -> torch.Tensor:
-    """LayerNorm in float32, cast back to x's dtype; the result is the remat
-    site ``name``."""
-    x32, w, b = x.float(), p["scale"].float(), p["bias"].float()
-    if x.dtype == torch.float32:
-        return named(name, F.layer_norm, x32, (x.shape[-1],), w, b, eps)
-    y = F.layer_norm(x32, (x.shape[-1],), w, b, eps)
-    return named(name, y.to, x.dtype)
+               name: Optional[str] = None, time_keep: Optional[torch.Tensor] = None,
+               feat_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LayerNorm in float32, cast back to x's dtype, then times the deep
+    SpecAugment keep-vectors ``time_keep`` (T,) and ``feat_keep`` (d,) where
+    given (in x's dtype); the result is the remat site ``name``. A float32 x
+    without keep-vectors is ``F.layer_norm``; every other x goes through
+    ``wft::layer_norm`` (:mod:`whisper_finetune_torch.ops.layer_norm`: one
+    kernel each way for bf16 on a card, the same composite elsewhere)."""
+    w, b = p["scale"].float(), p["bias"].float()
+    if x.dtype == torch.float32 and time_keep is None and feat_keep is None:
+        return named(name, F.layer_norm, x, (x.shape[-1],), w, b, eps)
+    return named(name, layer_norm_op, x, w, b, eps, time_keep, feat_keep)[0]
 
 
 def _dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -453,11 +458,8 @@ def _encoder_block(x: torch.Tensor, bp: Params, fcfg: ForwardConfig, n_head: int
     with span("wft.enc_block"):
         dtype = fcfg.dtype
         bp = _with_lora(bp, fcfg, lora_keep)
-        if time_keep is None:
-            x_ln = layer_norm(x, bp["attn_ln"], name="enc_ln1")
-        else:
-            x_ln = layer_norm(x, bp["attn_ln"]) * time_keep[None, :, None]
-            x_ln = named("enc_ln1", torch.mul, x_ln, feat_keep[None, None, :])
+        x_ln = layer_norm(x, bp["attn_ln"], name="enc_ln1", time_keep=time_keep,
+                          feat_keep=feat_keep)
         x = x + multi_head_attention(x_ln, x_ln, bp["attn"], n_head, dtype,
                                      impl=fcfg.enc_attn, site="enc")
         x_ln2 = layer_norm(x, bp["mlp_ln"], name="enc_ln2")
@@ -585,8 +587,10 @@ def _sinusoids_cached(length: int, channels: int) -> np.ndarray:
 def conv_stem(enc: Params, mel: torch.Tensor, dims: ModelDimensions,
               dtype: torch.dtype) -> torch.Tensor:
     """Conv1 -> GELU -> conv2 (stride 2) -> GELU -> + sinusoidal positions.
-    mel (B, n_mels, 3000) -> (B, n_audio_ctx, d) in the compute dtype. The
-    (width, in, out) kernels are laid out for ``conv1d`` here."""
+    mel (B, n_mels, 3000) -> (B, n_audio_ctx, d) in the compute dtype,
+    contiguous: the convolution leaves (B, d, T) in memory, and the encoder's
+    residual stream, its elementwise kernels and every layer norm read rows.
+    The (width, in, out) kernels are laid out for ``conv1d`` here."""
     x = mel.to(dtype)
     w1 = enc["conv1"]["w"].to(dtype).permute(2, 1, 0)
     x = F.gelu(F.conv1d(x, w1, padding=1) + enc["conv1"]["b"].to(dtype)[:, None])
@@ -595,7 +599,7 @@ def conv_stem(enc: Params, mel: torch.Tensor, dims: ModelDimensions,
     x = x.transpose(1, 2)
     pos = torch.from_numpy(_sinusoids_cached(dims.n_audio_ctx, dims.n_audio_state))
     pos = pos.to(device=x.device, dtype=dtype)
-    return (x + pos[None, : x.shape[1]]).to(dtype)
+    return (x + pos[None, : x.shape[1]]).to(dtype).contiguous()
 
 
 def decoder_embed(dec: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

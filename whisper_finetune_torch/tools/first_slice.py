@@ -62,13 +62,15 @@ def synthetic_batch(dims, accum: int = 1, batch: int = 8, seed: int = 0, device=
 
 def reset_counts() -> tuple:
     """Sets every kernel's launch counter and the forwards' ``blocks_run``
-    to 0; returns the kernels' wrappers."""
+    to 0; returns the attention and AdamW kernels' wrappers (the layer
+    norms' are ``ops/layer_norm.py::KERNELS``)."""
     from whisper_finetune_torch.models import whisper as W
     from whisper_finetune_torch.ops import attention as A
+    from whisper_finetune_torch.ops import layer_norm as LN
     from whisper_finetune_torch.ops.fused_adamw8 import fused_adamw8_leaf
 
     kernels = (*A.KERNELS, fused_adamw8_leaf)
-    for fn in kernels:
+    for fn in (*kernels, *LN.KERNELS):
         fn.launches = 0
     W.encoder_forward.blocks_run = W.decoder_forward.blocks_run = 0
     return kernels
