@@ -309,36 +309,3 @@ def test_bind_declares_every_c_entry():
     source = (Path(A.__file__).parent.parent / "csrc" / "attention.cu").read_text()
     assert all(f'extern "C" int {n}(' in source for n in
                ("wft_attn_fwd", "wft_attn_bwd", "wft_attn_fwd_occupancy"))
-
-
-def test_attn_fwd_variants_edits_find_their_statements():
-    """The forward's timing variants of ``attention.cu`` find their
-    statements once each and differ from the kernel as built and from each
-    other."""
-    from whisper_finetune_torch import _build
-    from whisper_finetune_torch.tools import attn_bwd_variants as V
-    from whisper_finetune_torch.tools import attn_fwd_variants as F
-
-    source = (_build.CSRC / "attention.cu").read_text()
-    texts = V.variant_sources(source, F.VARIANTS)
-    assert texts["as_built"] == source and len(set(texts.values())) == len(texts)
-    for name, edits in F.VARIANTS.items():
-        for old, _ in edits:
-            with pytest.raises(RuntimeError, match="not once"):
-                V.variant_sources(source.replace(old, ""), {name: edits})
-
-
-def test_attn_bwd_variants_edits_find_their_statements():
-    """The timing tool's wrong-on-purpose variants of ``attention.cu`` are made
-    by text edits: each must still find its statement exactly once, and every
-    variant's source must differ from the kernel as built."""
-    from whisper_finetune_torch import _build
-    from whisper_finetune_torch.tools import attn_bwd_variants as V
-
-    source = (_build.CSRC / "attention.cu").read_text()
-    texts = V.variant_sources(source)
-    assert set(texts) == set(V.VARIANTS)
-    assert texts["as_built"] == source
-    assert len(set(texts.values())) == len(texts)
-    with pytest.raises(RuntimeError, match="not once"):
-        V.variant_sources(source.replace(V.REDUCE_CALL, ""))

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain twins on the card, at small
-shapes (``chip_smoke.py`` holds them at the main path's). Marked ``cuda``:
-they skip where ``torch.cuda.is_available()`` is false. On a card:
+shapes and at the main path's. Marked ``cuda``: they skip where
+``torch.cuda.is_available()`` is false. On a card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
@@ -8,6 +8,8 @@ they skip where ``torch.cuda.is_available()`` is false. On a card:
 import numpy as np
 import pytest
 import torch
+
+from whisper_finetune_torch.tools import kernel_checks as KC
 
 pytestmark = pytest.mark.cuda
 
@@ -21,33 +23,22 @@ def card():
     return gen
 
 
-@pytest.mark.parametrize("Tq,Tk,causal", [(77, 131, False), (150, 150, False),
-                                          (24, 150, False), (200, 200, True),
-                                          (130, 40, False), (300, 300, True),
-                                          (129, 257, False), (257, 257, True)])
-def test_attention_kernels_match_plain(card, Tq, Tk, causal):
-    from whisper_finetune_torch.ops import attention as A
-
-    B, H, scale = 2, 3, 0.125
-
-    def heads(T):  # the model's layout: (B, T, H, 64) seen as (B, H, T, 64)
-        return torch.randn((B, T, H, 64), generator=card, device="cuda").to(torch.bfloat16).transpose(1, 2)
-
-    q, k, v, do = heads(Tq), heads(Tk), heads(Tk), heads(Tq)
-    counts = [fn.launches for fn in A.KERNELS]
-    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
-    o = A.splash_mha(qr, kr, vr, causal=causal, sm_scale=scale)
-    o.backward(do)
-    assert [fn.launches - c for fn, c in zip(A.KERNELS, counts)] == [1, 1]
-    o_r, lse_r = A.attn_fwd_plain(q.float(), k.float(), v.float(), causal, scale)
-    dq_r, dk_r, dv_r = A.attn_bwd_plain(q.float(), k.float(), v.float(), o_r, do.float(),
-                                        lse_r, causal, scale)
-    # bf16 in and out against float32 math: 2% (output) and 5% (gradients)
-    # of the largest reference value, plus 1e-3.
-    for got, ref, tol in ((o, o_r, 0.02), (qr.grad, dq_r, 0.05), (kr.grad, dk_r, 0.05),
-                          (vr.grad, dv_r, 0.05)):
-        err = (got.float() - ref).abs().max().item()
-        assert err <= tol * ref.abs().max().item() + 1e-3
+@pytest.mark.parametrize("with_lse", [True, False])
+@pytest.mark.parametrize("B,H,Tq,Tk,causal", [
+    (2, 3, 77, 131, False), (2, 3, 150, 150, False), (2, 3, 77, 77, True),
+    (2, 3, 24, 150, False),   # fewer queries than one query tile
+    (2, 3, 200, 200, True),
+    (2, 3, 130, 40, False),   # fewer keys than one 64-key tile
+    (2, 3, 70, 100, False),   # fewer keys than the forward's 128-key tile
+    (2, 3, 300, 300, True),   # causal, three key tiles, Tq no multiple of a tile
+    (2, 3, 129, 257, False),  # one query and one key past a whole tile
+    (2, 3, 257, 257, True),   # the same, causal: a last query tile of one row
+    *KC.ATTN_MAIN_SHAPES])
+def test_attention_kernels_match_plain(card, B, H, Tq, Tk, causal, with_lse):
+    """The forward instance (with or without its log-sum-exp write) and, with
+    it, the fused backward and ``splash_mha``'s autograd against their float32
+    twins, each run twice (``kernel_checks.check_attention``)."""
+    KC.check_attention(B, H, Tq, Tk, causal, with_lse, card)
 
 
 @pytest.mark.parametrize("Tq,Tk,causal", [(77, 131, False), (200, 200, True)])
@@ -118,27 +109,47 @@ def test_muon_flagship_step_on_card(card):
     assert all(not torch.equal(a, b) for a, b in zip(before, leaves))
 
 
-@pytest.mark.parametrize("nb", [256, 100])
+@pytest.mark.parametrize("nb", [256, 100, 259330])  # 259330: large-v3's tok_emb, not a multiple of 128
 def test_fused_adamw8_kernel_matches_plain(card, nb):
-    from whisper_finetune_torch.ops.fused_adamw8 import fused_adamw8_leaf, fused_adamw8_plain
+    """Three steps from zero moments, bit-equal to the twin."""
+    p = torch.randn((nb, 256), generator=card, device="cuda")
+    KC.check_adamw8(p, torch.zeros((nb, 256), dtype=torch.int8, device="cuda"),
+                    torch.zeros((nb, 1), device="cuda"),
+                    torch.zeros((nb, 256), dtype=torch.uint8, device="cuda"),
+                    torch.zeros((nb, 1), device="cuda"), card)
 
-    hp = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
-    state = [torch.randn((nb, 256), generator=card, device="cuda"),
-             torch.zeros((nb, 256), dtype=torch.int8, device="cuda"),
-             torch.zeros((nb, 1), device="cuda"),
-             torch.zeros((nb, 256), dtype=torch.uint8, device="cuda"),
-             torch.zeros((nb, 1), device="cuda")]
-    ref = [x.clone() for x in state]
-    gs = torch.tensor(0.5, device="cuda")
-    for t in range(1, 4):
-        g = (torch.randn((nb, 256), generator=card, device="cuda") * 0.1).to(torch.bfloat16)
-        c1, c2 = 1 - 0.9 ** t, 1 - 0.999 ** t
-        fused_adamw8_leaf(state[0], g, *state[1:], 1e-3, c1, c2, gs, **hp)
-        ref = list(fused_adamw8_plain(ref[0], g, *ref[1:], 1e-3, c1, c2, gs, **hp))
-    # Same operations in the same order on the same card's libm, no FMA
-    # contraction in the kernel: bit-identical.
-    for got, want in zip(state, ref):
-        assert torch.equal(got, want)
+
+def test_fused_adamw8_kernel_on_trained_state(card):
+    """Three steps of the kernel and its twin from a model's own leaves and
+    8-bit moments after four train steps (non-zero codes and scales), every
+    quantized leaf: bit-equal."""
+    from whisper_finetune_torch.models import ModelDimensions, init_params
+    from whisper_finetune_torch.models.whisper import ForwardConfig
+    from whisper_finetune_torch.ops.attention import resolve_auto_impls
+    from whisper_finetune_torch.optim import adamw_8bit
+    from whisper_finetune_torch.optim.quantized import BLOCK, QMoment
+    from whisper_finetune_torch.train import TrainState, make_train_step
+
+    dims = ModelDimensions(n_mels=80, n_audio_ctx=150, n_audio_state=128, n_audio_head=2,
+                           n_audio_layer=2, n_vocab=500, n_text_ctx=24, n_text_state=128,
+                           n_text_head=2, n_text_layer=2)
+    model = init_params(dims, seed=0)
+    tx = adamw_8bit(3e-3)
+    state = TrainState(model, tx.init([p for _, p in model.leaves()]), 0)
+    step = make_train_step(dims, ForwardConfig(**resolve_auto_impls("cuda")), tx, 0.1,
+                           max_grad_norm=1.0, accum_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    batch = {"mel": torch.from_numpy(rng.standard_normal((1, 2, 80, 300)).astype(np.float32)),
+             "dec_input": torch.from_numpy(rng.integers(0, 500, (1, 2, 24))),
+             "dec_output": torch.from_numpy(rng.integers(0, 500, (1, 2, 24)))}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    for _ in range(4):
+        state, loss = step(state, batch)
+    assert np.isfinite(loss.item())
+    checked = [KC.check_adamw8_leaf(p, mu, nu, card)
+               for (_, p), mu, nu in zip(state.model.leaves(), state.opt_state.mu, state.opt_state.nu)
+               if isinstance(mu, QMoment) and p.numel() % BLOCK == 0]
+    assert len(checked) > 4 and all(r["m_codes_nonzero"] > 0 for r in checked)
 
 
 def test_train_step_on_card(card):
@@ -329,76 +340,14 @@ def test_empty_cuda_graph_raises(card):
         D._cuda_graph(lambda: None, dev)
 
 
-def _bf16_ulp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One bf16 unit in the last place of the larger of |a| and |b|
-    (8 significant bits), elementwise, float32."""
-    m = torch.maximum(a.float().abs(), b.float().abs()).clamp(min=2.0 ** -126)
-    return torch.exp2(torch.floor(torch.log2(m)) - 7)
-
-
-def _ln_inputs(card, n, d, masks):
-    """x (n // T, T, d) bf16 with T = 1500 where it divides n (the encoder's
-    rows), gamma and beta float32, dy bf16, keep-vectors from draws."""
-    from whisper_finetune_torch.models.whisper import axis_keep_masks
-
-    T = 1500 if n % 1500 == 0 else n
-    x = (torch.randn((n // T, T, d), generator=card, device="cuda") * 2 + 0.3).to(torch.bfloat16)
-    w = 1 + 0.2 * torch.randn((d,), generator=card, device="cuda")
-    b = 0.1 * torch.randn((d,), generator=card, device="cuda")
-    dy = torch.randn((n // T, T, d), generator=card, device="cuda").to(torch.bfloat16)
-    tk = fk = None
-    if masks:
-        u = torch.rand((2, 1, 2), generator=card, device="cuda").cpu().numpy()
-        tk = torch.from_numpy(axis_keep_masks(u[0], T, min(100, T))[0]).cuda().to(torch.bfloat16)
-        fk = torch.from_numpy(axis_keep_masks(u[1], d, 27)[0]).cuda().to(torch.bfloat16)
-    return x, w, b, dy, tk, fk
-
-
 @pytest.mark.parametrize("masks", [False, True])
 @pytest.mark.parametrize("n,d", [(48000, 1280), (96000, 1280), (8, 1280), (3000, 384),
                                  (300, 128)])
 def test_layer_norm_kernel_matches_plain(card, n, d, masks):
     """``wft::layer_norm`` on the card against its plain version (the
     composite, float32 on the card), forward and backward, and the backward
-    twice."""
-    from whisper_finetune_torch.ops import layer_norm as LN
-
-    x, w, b, dy, tk, fk = _ln_inputs(card, n, d, masks)
-    launches = [fn.launches for fn in LN.KERNELS]
-    y, mean, rstd = LN.layer_norm_op(x, w, b, 1e-5, tk, fk)
-    dx, dw, db = LN.layer_norm_bwd(dy, x, mean, rstd, w, b, tk, fk)
-    dx2, dw2, db2 = LN.layer_norm_bwd(dy, x, mean, rstd, w, b, tk, fk)
-    assert [fn.launches - c for fn, c in zip(LN.KERNELS, launches)] == [1, 2]
-    y_r, mean_r, rstd_r = LN.layer_norm_fwd_plain(x, w, b, 1e-5, tk, fk)
-    dx_r, dw_r, db_r = LN.layer_norm_bwd_plain(dy, x, mean_r, rstd_r, w, b, tk, fk)
-    # The forward: float32 statistics and affine in another order, rounded
-    # once to bf16: within one bf16 ulp, plus where xhat * gamma + beta
-    # cancels toward 0 the float32 value's own error, which the statistics'
-    # last bits move by ~1e-6 of the terms |xhat * gamma| and |gamma|
-    # (allowed: 1e-5 of them).
-    xh = (x.float() - mean_r.view(x.shape[:-1] + (1,))) * rstd_r.view(x.shape[:-1] + (1,))
-    err = (y.float() - y_r.float()).abs()
-    assert (err <= _bf16_ulp(y, y_r) + 1e-5 * ((xh * w).abs() + w.abs())).all(), err.max()
-    if masks:
-        assert torch.equal(y == 0, y_r == 0) and (y_r == 0).any()
-    torch.testing.assert_close(mean, mean_r, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(rstd, rstd_r, rtol=1e-5, atol=0)
-    # dx: float32 row sums over d in another order (each ~d * 2**-24 of the
-    # largest term) before one rounding to bf16: one bf16 ulp plus 1e-4 of
-    # the row's largest |dx|.
-    row_max = dx_r.float().abs().amax(dim=-1, keepdim=True)
-    err = (dx.float() - dx_r.float()).abs()
-    assert (err <= _bf16_ulp(dx, dx_r) + 1e-4 * row_max).all(), err.max()
-    # dgamma, dbeta: float32 column sums over n rows, the kernel's in a tree
-    # of at most n / (4 * blocks) + 4 + blocks sequential adds, the
-    # reference's in its own: the error of either is below 1e-3 (n 96,000:
-    # ~2**-24 * 2,000 adds ~ 1.2e-4) of the sum of the terms' magnitudes.
-    g = dy.float() if not masks else (dy * fk * tk[:, None]).float()
-    for got, ref, mag in ((dw, dw_r, (g * xh).abs().sum(dim=(0, 1))),
-                          (db, db_r, g.abs().sum(dim=(0, 1)))):
-        assert got.dtype == torch.float32 and ((got - ref).abs() <= 1e-3 * mag + 1e-6).all()
-    # No atomics: the same bits every run.
-    assert torch.equal(dx, dx2) and torch.equal(dw, dw2) and torch.equal(db, db2)
+    twice (``kernel_checks.check_layer_norm``)."""
+    KC.check_layer_norm(n, d, masks, card)
 
 
 def test_layer_norm_kernel_in_a_cuda_graph(card):
@@ -407,7 +356,7 @@ def test_layer_norm_kernel_in_a_cuda_graph(card):
     eager results' bits."""
     from whisper_finetune_torch.ops import layer_norm as LN
 
-    x, w, b, dy, tk, fk = _ln_inputs(card, 3000, 1280, True)
+    x, w, b, dy, tk, fk = KC.layer_norm_inputs(card, 3000, 1280, True)
 
     def run():
         y, mean, rstd = LN.layer_norm_op(x, w, b, 1e-5, tk, fk)
