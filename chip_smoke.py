@@ -53,8 +53,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      stochastic depth 0, int8 Muon momentum and 8-bit auxiliary AdamW,
      accumulation 2, 2 steps: 96 forward launches (the instance that writes
      no log-sum-exp), no backward kernel launch;
-   - ``auto``: the config as shipped (splash at the encoder and cross sites,
-     plain decoder self-attention) at 4 + 4 layers, 2 steps.
+   - ``auto``: the config as shipped (the kernels at all three attention
+     sites) at 4 + 4 layers, 2 steps.
 5. The model layer, three legs after those (``.pt`` files under the
    gitignored ``build/chip_smoke/``, removed after use):
    - ``remat``: the first slice under ``remat_policy`` dots, attn,
@@ -62,18 +62,18 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      main path's weights, batch and SpecAugment draws, 1 warm-up + 2 timed
      steps, held against the main path (``full``): first loss bit-equal,
      first-step gradients' per-layer norms within 2%, parameters after one
-     step within 3 lr, launches 128 / 64 / 43
+     step within 3 lr, launches 192 / 96 / 43
      a step, the peak over full against what the policy keeps (an offload:
      within one layer of full, every site's bytes staged to pinned host
      memory);
    - ``lora``: ``configs/config_small_lora.yaml`` as shipped, base weights
-     through an fp16 ``.pt`` and ``config.build_model``: launches 384 / 192 a
+     through an fp16 ``.pt`` and ``config.build_model``: launches 576 / 288 a
      step, base leaves bit-equal after the steps, every adapter B non-zero,
      merged and runtime-LoRA logits bit-equal, the merge CLI (on the card)
      from the trained model's float32 ``.pt``: its fp16 file bit-equal to
      fp16 of the merge;
    - ``surgery``: ``init_name: whisper-4832`` from a 3.1 GB large-v3 ``.pt``
-     resized to 48 + 32 layers, the first slice's step: launches 160 / 80 / 43
+     resized to 48 + 32 layers, the first slice's step: launches 224 / 112 / 43
      a step; the resized model saved and reloaded as fp16 (times of each).
 6. The training driver, ``whisper_finetune_torch.scripts.finetune.main``,
    in this process on ``configs/DEBUG.yaml`` turned to ``init_name:
@@ -83,7 +83,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    builder -> sampler -> loader threads -> pinned copies -> the train step,
    8 optimizer steps, eval at step 0 and 8, ``metrics.jsonl``, ``.pt``
    saves. Counters zeroed just before ``main`` and read just after: each
-   train step 128 / 64 / 43 launches as the first slice's, plus one forward
+   train step 192 / 96 / 43 launches as the first slice's, plus one forward
    launch a site for each eval batch; the ``metrics.jsonl`` keys equal the
    JAX driver's (``tests/driver_metrics_keys.json``); ``last_model.pt`` read
    back equal to fp16 of the final parameters. Prints the median
@@ -523,10 +523,20 @@ def time_adamw8(model, opt_state, gen) -> dict:
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
+def auto_sites(enc_blocks: int, dec_blocks: int) -> dict:
+    """``first_slice.attn_sites`` under ``attn_impl: auto`` on a card."""
+    from whisper_finetune_torch.models.whisper import ForwardConfig
+    from whisper_finetune_torch.ops.attention import resolve_auto_impls
+    from whisper_finetune_torch.tools import first_slice as fs
+
+    return fs.attn_sites(ForwardConfig(**resolve_auto_impls("cuda")), enc_blocks, dec_blocks)
+
+
 def main_path() -> dict:
     import torch
     from whisper_finetune_torch.models import get_preset_dims
     from whisper_finetune_torch.models import whisper as W
+    from whisper_finetune_torch.ops import attention as A
     from whisper_finetune_torch.ops import layer_norm as LN
     from whisper_finetune_torch.tools import first_slice as fs
 
@@ -566,14 +576,17 @@ def main_path() -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     n_steps = WARMUP_STEPS + TIMED_STEPS
-    sites = dims.n_audio_layer + dims.n_text_layer  # encoder self + cross
+    sites = auto_sites(dims.n_audio_layer * n_steps, dims.n_text_layer * n_steps)
     expect = {
-        "attn_fwd": 2 * sites * n_steps,         # forward + remat recompute
-        "attn_bwd": sites * n_steps,
+        "attn_fwd": 2 * sites["fwd"],         # forward + remat recompute
+        "attn_bwd": sites["bwd"],
         "fused_adamw8_leaf": fused_leaves * n_steps,
     }
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
+    causal = [A.attn_fwd.causal_launches, A.attn_bwd.causal_launches]
+    if causal != [2 * sites["causal_fwd"], sites["causal_bwd"]]:
+        raise AssertionError(f"causal launches {causal} != expected {sites}")
     # Two norms a kept encoder block and three a decoder block, forward and
     # remat recompute, and ln_post and the decoder's last norm once a
     # microbatch (tests/test_torch_layer_norm.py::test_norm_calls_a_step).
@@ -690,14 +703,9 @@ def flagship_leg(name: str, attn_impl: str, layers, accum, steps: int, warmup: i
     peak = torch.cuda.max_memory_allocated()
 
     # Attention sites the forwards ran through the kernels, by route.
-    kernel_routes = ("splash", "flash", "flash_fwd")
-    sites = (enc_blocks * (fcfg.enc_attn in kernel_routes)
-             + dec_blocks * ((fcfg.dec_attn in kernel_routes) + (fcfg.cross_attn in kernel_routes)))
-    bwd_sites = (enc_blocks * (fcfg.enc_attn in ("splash", "flash"))
-                 + dec_blocks * ((fcfg.dec_attn in ("splash", "flash"))
-                                 + (fcfg.cross_attn in ("splash", "flash"))))
-    expect = {"attn_fwd": 2 * sites,  # forward + remat recompute of every kept block
-              "attn_bwd": bwd_sites,
+    sites = fs.attn_sites(fcfg, enc_blocks, dec_blocks)
+    expect = {"attn_fwd": 2 * sites["fwd"],  # forward + remat recompute of every kept block
+              "attn_bwd": sites["bwd"],
               "fused_adamw8_leaf": aux_fused * n_steps}
     if launches != expect:
         raise AssertionError(f"[{name}] launch counts {launches} != expected {expect} "
@@ -765,7 +773,9 @@ REMAT_POLICIES = ("dots", "attn", "save:enc_mlp_h", "offload:enc_mlp_h")  # agai
 GB = 1e9
 # Device bytes a policy keeps over full: bf16, B=8, T=1500/448, D=1280,
 # F=5120, 32+32 layers (PERF.md §6, the predictions).
-REMAT_KEEPS = {"dots": 32 * 276.5e6 + 32 * 162.4e6, "attn": 32 * 64.2e6,
+# ``attn`` keeps the plain path's probabilities; every site of the first
+# slice runs the kernels, which have none, so it keeps what full keeps.
+REMAT_KEEPS = {"dots": 32 * 276.5e6 + 32 * 162.4e6, "attn": 0.0,
                "save:enc_mlp_h": 32 * 122.9e6, "offload:enc_mlp_h": 0.0}
 LAYER_MLP_H = 8 * 1500 * 5120 * 2  # one encoder layer's fc1 output, bf16
 # First-step gradient norms, one per layer of a stacked leaf, against the
@@ -802,7 +812,7 @@ def remat_leg(main_rec: dict, full_first_step, batch) -> dict:
     ``full`` run: the first loss bit-equal, the first step's gradients
     (per-layer norms within GRAD_NORM_TOL) and parameters (within
     REMAT_PARAM_TOL), the launches a step
-    (128 / 64 / 43), and the peak moving by what the policy keeps (an offload
+    (192 / 96 / 43), and the peak moving by what the policy keeps (an offload
     stays within one layer's fc1 output of full on the device and stages it
     all to the host)."""
     import torch
@@ -831,8 +841,9 @@ def remat_leg(main_rec: dict, full_first_step, batch) -> dict:
         out[policy] = rec
         del state, step, tx
         torch.cuda.empty_cache()
-        sites = dims.n_audio_layer + dims.n_text_layer
-        expect = {"attn_fwd": 2 * sites * 3, "attn_bwd": sites * 3, "fused_adamw8_leaf": fused * 3}
+        sites = auto_sites(dims.n_audio_layer * 3, dims.n_text_layer * 3)
+        expect = {"attn_fwd": 2 * sites["fwd"], "attn_bwd": sites["bwd"],
+                  "fused_adamw8_leaf": fused * 3}
         if rec["launches"] != expect:
             raise AssertionError(f"[remat {policy}] launches {rec['launches']} != {expect}")
         if rec["losses"][0] != main_rec["losses"][0]:
@@ -873,7 +884,7 @@ def lora_leg() -> dict:
     alpha 32, dropout 0, batch 2 x accumulation 8, float32 AdamW lr 1e-3,
     cosine, ``attn_impl: auto``), random base weights written as an fp16
     ``.pt`` and read back through ``config.build_model`` (``load_model`` of
-    the path); 1 warm-up + 2 timed steps. Asserted: launches 384 / 192 / 0 a
+    the path); 1 warm-up + 2 timed steps. Asserted: launches 576 / 288 / 0 a
     step, base leaves bit-equal after the steps, every adapter B non-zero,
     merged and runtime-LoRA logits bit-equal in one eval forward, and the
     merge CLI's fp16 file (the trained model saved in float32, merged on the
@@ -920,9 +931,8 @@ def lora_leg() -> dict:
     gen.manual_seed(0)
     state, rec = fs.run_steps("lora", step, state, batch, gen, 1, 2, log=log)
 
-    sites = dims.n_audio_layer + dims.n_text_layer
-    expect = {"attn_fwd": 2 * sites * accum * 3, "attn_bwd": sites * accum * 3,
-              "fused_adamw8_leaf": 0}
+    sites = fs.attn_sites(fcfg, dims.n_audio_layer * accum * 3, dims.n_text_layer * accum * 3)
+    expect = {"attn_fwd": 2 * sites["fwd"], "attn_bwd": sites["bwd"], "fused_adamw8_leaf": 0}
     if rec["launches"] != expect:
         raise AssertionError(f"[lora] launches {rec['launches']} != {expect}")
     if abs(rec["losses"][0] - math.log(dims.n_vocab)) > 0.5:
@@ -982,7 +992,7 @@ def surgery_leg(batch) -> dict:
     ``config.build_model`` (``load_model`` of the base, then resized to 48
     encoder and 32 decoder layers), then the first slice's step (batch 8,
     splash, 8-bit AdamW): 1 warm-up + 2 timed steps. Asserted: launches
-    160 / 80 / 43 a step; the resized model saves and reloads as an fp16
+    224 / 112 / 43 a step; the resized model saves and reloads as an fp16
     ``.pt`` with 48 encoder layers, equal to its fp16 rounding."""
     import os
 
@@ -1021,8 +1031,9 @@ def surgery_leg(batch) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     state, rec = fs.run_steps("surgery", step, state, batch, gen, 1, 2, log=log)
-    sites = dims.n_audio_layer + dims.n_text_layer
-    expect = {"attn_fwd": 2 * sites * 3, "attn_bwd": sites * 3, "fused_adamw8_leaf": fused * 3}
+    sites = auto_sites(dims.n_audio_layer * 3, dims.n_text_layer * 3)
+    expect = {"attn_fwd": 2 * sites["fwd"], "attn_bwd": sites["bwd"],
+              "fused_adamw8_leaf": fused * 3}
     if rec["launches"] != expect or fused != 43:
         raise AssertionError(f"[surgery] launches {rec['launches']} != {expect}")
     if not all(math.isfinite(x) for x in rec["losses"]) or abs(
@@ -1074,7 +1085,7 @@ def driver_leg(first_slice_step_s: float) -> dict:
     ``tools/make_debug_dataset.py --n 64`` (64 train / 16 validation rows)
     written under ``build/chip_smoke/``, so 8 optimizer steps; eval at step
     0 and step 8 on 8 validation rows (batches of 4). Asserted: the launch
-    counts (each train step 128 / 64 / 43 as the first slice's, each eval
+    counts (each train step 192 / 96 / 43 as the first slice's, each eval
     batch one forward a site), finite losses with the first within 0.25 of
     the step-0 validation NLL and within 1 of ln V, the ``metrics.jsonl``
     keys equal to those the CPU test pins from the JAX driver, ``val/*`` at
@@ -1137,10 +1148,10 @@ def driver_leg(first_slice_step_s: float) -> dict:
     leaves = [p for _, p in model.leaves()]
     fused = sum(isinstance(mu, QMoment) and p.numel() % BLOCK == 0
                 for p, mu in zip(leaves, state.opt_state.mu))
-    sites = dims.n_audio_layer + dims.n_text_layer  # encoder self + cross
+    sites = auto_sites(dims.n_audio_layer, dims.n_text_layer)  # a microbatch's
     eval_batches = 2 * 2  # evals at step 0 and 8, each 8 rows in batches of 4
-    expect = {"attn_fwd": 2 * sites * n_steps + sites * eval_batches,
-              "attn_bwd": sites * n_steps, "fused_adamw8_leaf": fused * n_steps}
+    expect = {"attn_fwd": 2 * sites["fwd"] * n_steps + sites["fwd"] * eval_batches,
+              "attn_bwd": sites["bwd"] * n_steps, "fused_adamw8_leaf": fused * n_steps}
     if n_steps != 8 or fused != 43 or launches != expect:
         raise AssertionError(f"[driver] {n_steps} steps, launches {launches} != {expect}")
     losses = [r["Train loss"] for r in train]
@@ -1612,10 +1623,10 @@ def ddp_leg(driver: dict) -> dict:
             or min(v[0] for v in cmp["codes"].values()) == 0):
         raise AssertionError(f"[ddp] after step 1 against the reference: {cmp} (the "
                              f"reference against itself: {spread})")
-    # launches: a step 128 / 64 as the first slice's, 43 fused updates of the
+    # launches: a step 192 / 96 as the first slice's, 43 fused updates of the
     # rank's quantized shards and whole leaves; an eval batch (2 of 4 rows a
     # rank) one forward a site; the reference runs two microbatches a step
-    sites = 64
+    sites = auto_sites(32, 32)["fwd"]
     for name, rec, micro, steps, evals in [(f"rank {r}", rk, 1, 3, 4)
                                            for r, rk in enumerate(ranks)] + \
             [("reference", ref, 2, 3, 4), ("reference again", again, 2, 1, 0)]:
@@ -1792,10 +1803,10 @@ def split_leg(dims=None, device="cuda") -> dict:
             and abs(man["peak_diff_bytes"] - SPLIT_PEAK_DIFF["manual"]) <= SPLIT_PEAK_TOL):
         raise AssertionError(f"[split] manual peak - automatic peak {man['peak_diff_bytes'] / GB:.3f}"
                              f" GB, reckoned {SPLIT_PEAK_DIFF['manual'] / GB:.3f}")
-    # each kept block: one attention site (encoder self or cross) through the
-    # kernels, forward and recompute (or replay) plus backward
-    expect = {"attn_fwd": 2 * (blocks2[0] + blocks2[1]), "attn_bwd": blocks2[0] + blocks2[1],
-              "fused_adamw8_leaf": 0}
+    # each kept block's kernel sites, forward and recompute (or replay) plus
+    # backward
+    sites = fs.attn_sites(fcfg, *blocks2)
+    expect = {"attn_fwd": 2 * sites["fwd"], "attn_bwd": sites["bwd"], "fused_adamw8_leaf": 0}
     if compare_launches != expect:
         raise AssertionError(f"[split] accumulations' launches {compare_launches} != {expect}")
     for name, c in compare.items():
@@ -1850,7 +1861,8 @@ def split_leg(dims=None, device="cuda") -> dict:
     enc_blocks, dec_blocks = W.encoder_forward.blocks_run, W.decoder_forward.blocks_run
     peak = torch.cuda.max_memory_allocated()
     n_steps = warmup + timed
-    expect = {"attn_fwd": 2 * (enc_blocks + dec_blocks), "attn_bwd": enc_blocks + dec_blocks,
+    sites = fs.attn_sites(fcfg, enc_blocks, dec_blocks)
+    expect = {"attn_fwd": 2 * sites["fwd"], "attn_bwd": sites["bwd"],
               "fused_adamw8_leaf": aux_fused * n_steps}
     if launches != expect or not aux_fused:
         raise AssertionError(f"[split] launch counts {launches} != expected {expect} "
@@ -2326,7 +2338,8 @@ def package_leg(pt: Path, device="cuda") -> dict:
             port_f32 = forward_impl(params, mel, tokens, pdims, f32)
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
-    expect = {"attn_fwd": sum(blocks), "attn_bwd": 0, "fused_adamw8_leaf": 0}
+    expect = {"attn_fwd": fs.attn_sites(bf16, *blocks)["fwd"], "attn_bwd": 0,
+              "fused_adamw8_leaf": 0}
     if launches != expect or blocks != (pdims.n_audio_layer, pdims.n_text_layer):
         raise AssertionError(f"[package] launches {launches} != {expect} (blocks run {blocks})")
     cmp_bf16 = _compare_logits(port_bf16, ref, DECODE_LOGIT_TOL)

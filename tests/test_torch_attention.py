@@ -98,27 +98,40 @@ def test_plain_twins_compose_to_autograd():
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
-def test_dispatch_and_auto_impls():
-    q, k, v = (_t(x) for x in _qkv(8, 8))
-    torch.testing.assert_close(A.attention(q, k, v, impl="splash"),
-                               A.attention(q, k, v, impl="xla"), atol=1e-5, rtol=0)
+# the encoder's square shape, and the decoder's causal site (the route
+# ``auto`` takes on a card) at 8 and at a length no multiple of 64
+@pytest.mark.parametrize("T,causal", [(8, False), (8, True), (77, True)])
+def test_dispatch_and_auto_impls(T, causal):
+    q, k, v = (_t(x, True) for x in _qkv(T, T))
+    do = _t(np.random.default_rng(16).standard_normal((2, 2, T, 16)).astype(np.float32))
+    scale = q.shape[-1] ** -0.5
+    want = A.attention(q, k, v, causal=causal, sm_scale=scale, impl="xla")
+    want_grads = torch.autograd.grad(want, (q, k, v), do)
+    got = A.attention(q, k, v, causal=causal, sm_scale=scale, impl="splash")
+    # float32 on both sides, the twins' softmax in another order: <= 6e-7
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    for a, b in zip(torch.autograd.grad(got, (q, k, v), do), want_grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
     for impl in ("flash", "flash_fwd"):
-        torch.testing.assert_close(A.attention(q, k, v, impl=impl),
-                                   A.attention(q, k, v, impl="xla"), atol=1e-5, rtol=0)
+        torch.testing.assert_close(A.attention(q, k, v, causal=causal, sm_scale=scale, impl=impl),
+                                   want, atol=1e-5, rtol=0)
     with pytest.raises(ValueError):
         A.attention(q, k, v, impl="nope")
     assert A.resolve_auto_impls("cpu") == {"attn_impl": "xla"}
     assert A.resolve_auto_impls("cuda") == {
-        "attn_impl": "xla", "attn_impl_encoder": "splash", "attn_impl_cross": "splash"}
+        "attn_impl": "xla", "attn_impl_encoder": "splash", "attn_impl_decoder": "splash",
+        "attn_impl_cross": "splash"}
 
 
 def test_cpu_path_counts_no_launch():
     for fn in A.KERNELS:
-        fn.launches = 0
-    q, k, v = (_t(x, True) for x in _qkv(8, 8))
-    A.splash_mha(q, k, v).sum().backward()
+        fn.launches = fn.causal_launches = 0
+    for causal in (False, True):
+        q, k, v = (_t(x, True) for x in _qkv(8, 8))
+        A.splash_mha(q, k, v, causal=causal).sum().backward()
     assert [fn.__name__ for fn in A.KERNELS] == ["attn_fwd", "attn_bwd"]
     assert [fn.launches for fn in A.KERNELS] == [0, 0]
+    assert [fn.causal_launches for fn in A.KERNELS] == [0, 0]
 
 
 # ragged, fewer keys than queries, causal (square and ragged)

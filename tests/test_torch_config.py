@@ -100,7 +100,7 @@ def test_flagship_forward_config():
     assert (f.dsa_apply, f.dsa_time_mask_param, f.dsa_freq_mask_param) == (True, 100, 43)
     assert f.remat_encoder and f.remat_decoder and f.attn_impl == "xla"  # auto on the CPU
     gpu = tc.build_forward_config(cfg, False, device="cuda")
-    assert (gpu.enc_attn, gpu.dec_attn, gpu.cross_attn) == ("splash", "xla", "splash")
+    assert (gpu.enc_attn, gpu.dec_attn, gpu.cross_attn) == ("splash", "splash", "splash")
     feat = tc.build_featurize_config(cfg, 128)
     assert (feat.spec_augment, feat.time_mask_param, feat.freq_mask_param, feat.p) == (
         True, 100, 43, 1.0)

@@ -23,6 +23,22 @@ def card():
     return gen
 
 
+def _assert_auto_launches():
+    """Since ``first_slice.reset_counts``, under ``attn_impl: auto`` with
+    full remat: two kernel sites a decoder block run (its causal
+    self-attention and the cross-attention) and one an encoder block, each
+    launched forward twice (the forward and the recompute or replay) and
+    backward once; the causal launches are the decoder blocks run, twice
+    and once."""
+    from whisper_finetune_torch.models import whisper as W
+    from whisper_finetune_torch.ops import attention as A
+
+    enc, dec = W.encoder_forward.blocks_run, W.decoder_forward.blocks_run
+    assert enc > 0 and dec > 0
+    assert [fn.launches for fn in A.KERNELS] == [2 * (enc + 2 * dec), enc + 2 * dec]
+    assert [fn.causal_launches for fn in A.KERNELS] == [2 * dec, dec]
+
+
 @pytest.mark.parametrize("with_lse", [True, False])
 @pytest.mark.parametrize("B,H,Tq,Tk,causal", [
     (2, 3, 77, 131, False), (2, 3, 150, 150, False), (2, 3, 77, 77, True),
@@ -128,6 +144,7 @@ def test_fused_adamw8_kernel_on_trained_state(card):
     from whisper_finetune_torch.ops.attention import resolve_auto_impls
     from whisper_finetune_torch.optim import adamw_8bit
     from whisper_finetune_torch.optim.quantized import BLOCK, QMoment
+    from whisper_finetune_torch.tools.first_slice import reset_counts
     from whisper_finetune_torch.train import TrainState, make_train_step
 
     dims = ModelDimensions(n_mels=80, n_audio_ctx=150, n_audio_state=128, n_audio_head=2,
@@ -143,9 +160,11 @@ def test_fused_adamw8_kernel_on_trained_state(card):
              "dec_input": torch.from_numpy(rng.integers(0, 500, (1, 2, 24))),
              "dec_output": torch.from_numpy(rng.integers(0, 500, (1, 2, 24)))}
     batch = {k: v.cuda() for k, v in batch.items()}
+    reset_counts()
     for _ in range(4):
         state, loss = step(state, batch)
     assert np.isfinite(loss.item())
+    _assert_auto_launches()
     checked = [KC.check_adamw8_leaf(p, mu, nu, card)
                for (_, p), mu, nu in zip(state.model.leaves(), state.opt_state.mu, state.opt_state.nu)
                if isinstance(mu, QMoment) and p.numel() % BLOCK == 0]
@@ -157,6 +176,7 @@ def test_train_step_on_card(card):
     from whisper_finetune_torch.models.whisper import ForwardConfig
     from whisper_finetune_torch.ops.attention import resolve_auto_impls
     from whisper_finetune_torch.optim import adamw_8bit
+    from whisper_finetune_torch.tools.first_slice import reset_counts
     from whisper_finetune_torch.train import TrainState, make_train_step
 
     dims = ModelDimensions(n_mels=80, n_audio_ctx=150, n_audio_state=128, n_audio_head=2,
@@ -173,11 +193,48 @@ def test_train_step_on_card(card):
              "dec_input": torch.from_numpy(rng.integers(0, 500, (1, 2, 24))),
              "dec_output": torch.from_numpy(rng.integers(0, 500, (1, 2, 24)))}
     batch = {k: v.cuda() for k, v in batch.items()}
+    reset_counts()
     losses = []
     for _ in range(4):
         state, loss = step(state, batch)
         losses.append(loss.item())
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    _assert_auto_launches()
+
+
+def test_split_step_launches_on_card(card):
+    """The split step with the manual backward under ``attn_impl: auto`` and
+    stochastic depth: the replay runs the decoder's causal self-attention
+    through ``attn_fwd`` and ``attn_bwd`` (``_assert_auto_launches``), and a
+    dropped block launches nothing."""
+    from whisper_finetune_torch.models import ModelDimensions, init_params
+    from whisper_finetune_torch.models import whisper as W
+    from whisper_finetune_torch.models.whisper import ForwardConfig
+    from whisper_finetune_torch.ops.attention import resolve_auto_impls
+    from whisper_finetune_torch.optim import adamw_8bit
+    from whisper_finetune_torch.tools.first_slice import reset_counts
+    from whisper_finetune_torch.train import TrainState, make_train_step
+
+    dims = ModelDimensions(n_mels=80, n_audio_ctx=150, n_audio_state=128, n_audio_head=2,
+                           n_audio_layer=4, n_vocab=500, n_text_ctx=24, n_text_state=128,
+                           n_text_head=2, n_text_layer=4)
+    model = init_params(dims, seed=0)
+    tx = adamw_8bit(1e-3)
+    state = TrainState(model, tx.init([p for _, p in model.leaves()]), 0)
+    fcfg = ForwardConfig(stochastic_depth=0.3, **resolve_auto_impls("cuda"))
+    step = make_train_step(dims, fcfg, tx, 0.1, max_grad_norm=1.0, accum_dtype="bfloat16",
+                           split_update=True, manual_backward=True)
+    rng = np.random.default_rng(0)
+    batch = {"mel": torch.from_numpy(rng.standard_normal((2, 2, 80, 300)).astype(np.float32)),
+             "dec_input": torch.from_numpy(rng.integers(0, 500, (2, 2, 24))),
+             "dec_output": torch.from_numpy(rng.integers(0, 500, (2, 2, 24)))}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    reset_counts()
+    for _ in range(2):
+        state, loss = step(state, batch, card)
+        assert np.isfinite(loss.item())
+    assert W.encoder_forward.blocks_run + W.decoder_forward.blocks_run < 2 * 2 * (4 + 4)
+    _assert_auto_launches()
 
 
 @pytest.mark.parametrize("policy", ["dots", "save:enc_mlp_h,dec_ln2", "offload:enc_mlp_h,cross_kv"])
@@ -223,8 +280,10 @@ def test_driver_on_card(card, tmp_path, monkeypatch):
     import yaml
 
     from tools.make_debug_dataset import main as make_dataset
+    from whisper_finetune_torch.models.whisper import ForwardConfig
+    from whisper_finetune_torch.ops.attention import resolve_auto_impls
     from whisper_finetune_torch.scripts import finetune
-    from whisper_finetune_torch.tools.first_slice import reset_counts
+    from whisper_finetune_torch.tools.first_slice import attn_sites, reset_counts
 
     root = Path(__file__).resolve().parent.parent
     monkeypatch.setenv("WFT_ALLOW_RANDOM_INIT", "1")
@@ -238,7 +297,8 @@ def test_driver_on_card(card, tmp_path, monkeypatch):
     kernels = reset_counts()
     state, run_dir = finetune.main(config, device="cuda")
     launches = {fn.__name__: fn.launches for fn in kernels}
-    sites = state.model.dims.n_audio_layer + state.model.dims.n_text_layer
+    sites = attn_sites(ForwardConfig(**resolve_auto_impls("cuda")),
+                       state.model.dims.n_audio_layer, state.model.dims.n_text_layer)["fwd"]
     micro, eval_batches = 2 * 4, 2 * 2
     assert launches == {"attn_fwd": 2 * sites * micro + sites * eval_batches,
                         "attn_bwd": sites * micro, "fused_adamw8_leaf": 0}

@@ -60,7 +60,11 @@ _TRAINING_DEFAULTS: Dict[str, Any] = {
     # save:<sites>, offload:<sites> (ops/remat.py).
     "remat_policy": "full",
     # "auto" picks the per-site mix for the device (ops/attention.py
-    # resolve_auto_impls); explicit: "xla", "flash", "splash", "flash_fwd".
+    # resolve_auto_impls): on a card the kernels at all three sites, the
+    # decoder's causal self-attention too (the JAX package keeps that site
+    # plain, its faster choice on the TPU; on an H100 the kernels are
+    # faster there); plain on the CPU. Explicit: "xla", "flash", "splash",
+    # "flash_fwd".
     "attn_impl": "auto",
     "compiler_options": None,
 }

@@ -44,7 +44,7 @@ def main(args) -> Dict[str, float]:
     model, dims = load_model(args.checkpoint, device=dev)
     tokenizer = get_tokenizer(multilingual=True, language=args.language, task="transcribe")
     # The training driver's attention resolution: ``auto`` is the kernels at
-    # the encoder and cross-attention on a card, plain elsewhere.
+    # all three attention sites on a card, plain elsewhere.
     attn_kwargs = (resolve_auto_impls(dev) if args.attn_impl == "auto"
                    else {"attn_impl": args.attn_impl})
     fcfg = ForwardConfig(compute_dtype=args.dtype, **attn_kwargs)
@@ -82,8 +82,8 @@ def cli(argv: Optional[list] = None) -> None:
     parser.add_argument("--language", default="de")
     parser.add_argument("--dtype", default="bfloat16")
     parser.add_argument("--attn-impl", default="auto",
-                        help="xla | flash | splash | flash_fwd | auto (the kernels at the "
-                             "encoder and cross-attention on a card)")
+                        help="xla | flash | splash | flash_fwd | auto (the kernels at "
+                             "every attention site on a card)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default: this rank's card; raises without one) or cpu")
     args = parser.parse_args(argv)

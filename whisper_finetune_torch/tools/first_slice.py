@@ -2,9 +2,10 @@
 ``chip_smoke.py`` and ``python -m whisper_finetune_torch.tools.remat_policies``.
 
 The first slice: large-v3 (random weights from seed 0, or a given model),
-8-bit AdamW(2e-5, wd 0.01), bf16 compute, splash attention at the encoder
-and cross sites, log-mel + SpecAugment inside the step, label smoothing 0.1,
-clip 1.0, bf16 gradient accumulator, over a batch of synthetic 30 s audio.
+8-bit AdamW(2e-5, wd 0.01), bf16 compute, ``attn_impl: auto`` (on a card the
+kernels at all three attention sites), log-mel + SpecAugment inside the
+step, label smoothing 0.1, clip 1.0, bf16 gradient accumulator, over a batch
+of synthetic 30 s audio.
 :func:`record_grad_norms` keeps the norms of a step's gradients, layer by
 layer, so that one remat policy's backward can be held against another's.
 """
@@ -60,10 +61,27 @@ def synthetic_batch(dims, accum: int = 1, batch: int = 8, seed: int = 0, device=
     return {k: v.to(device) for k, v in out.items()}
 
 
+def attn_sites(fcfg, enc_blocks: int, dec_blocks: int) -> dict:
+    """The attention sites that ``enc_blocks`` encoder and ``dec_blocks``
+    decoder blocks run through the kernels under ``fcfg``: ``fwd`` through
+    ``attn_fwd`` (once a forward pass, again in a remat recompute or manual
+    replay), ``bwd`` through ``attn_bwd`` (once a backward), and of them
+    ``causal_fwd`` / ``causal_bwd`` the decoder's self-attention."""
+    fwd_routes, bwd_routes = ("splash", "flash", "flash_fwd"), ("splash", "flash")
+    out = {}
+    for key, routes in (("fwd", fwd_routes), ("bwd", bwd_routes)):
+        causal = dec_blocks * (fcfg.dec_attn in routes)
+        out[key] = (enc_blocks * (fcfg.enc_attn in routes) + causal
+                    + dec_blocks * (fcfg.cross_attn in routes))
+        out[f"causal_{key}"] = causal
+    return out
+
+
 def reset_counts() -> tuple:
-    """Sets every kernel's launch counter and the forwards' ``blocks_run``
-    to 0; returns the attention and AdamW kernels' wrappers (the layer
-    norms' are ``ops/layer_norm.py::KERNELS``)."""
+    """Sets every kernel's launch counter (the attention kernels' causal
+    counts too) and the forwards' ``blocks_run`` to 0; returns the attention
+    and AdamW kernels' wrappers (the layer norms' are
+    ``ops/layer_norm.py::KERNELS``)."""
     from whisper_finetune_torch.models import whisper as W
     from whisper_finetune_torch.ops import attention as A
     from whisper_finetune_torch.ops import layer_norm as LN
@@ -72,6 +90,8 @@ def reset_counts() -> tuple:
     kernels = (*A.KERNELS, fused_adamw8_leaf)
     for fn in (*kernels, *LN.KERNELS):
         fn.launches = 0
+    for fn in A.KERNELS:
+        fn.causal_launches = 0
     W.encoder_forward.blocks_run = W.decoder_forward.blocks_run = 0
     return kernels
 
